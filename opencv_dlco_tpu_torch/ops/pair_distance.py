@@ -1,0 +1,41 @@
+"""Pooled descriptors and per-ring pair distances, float32 ("highest" route).
+
+Port of ``opencv_dlco_tpu/ops/pair_distance.py`` (reference:
+src/comp-fulldists.cpp:294-356, src/comp-uprjdists.cpp:298-349). A block of
+pairs pools through the filter bank as one wide float32 product (TF32 off),
+followed by truncation at 1, the squared difference and the two-stage ring
+reduction. The bf16 route is the fused kernel in ops/pair_distance_fused.py.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def pooled_descriptors(filters: torch.Tensor,
+                       patch_trans: torch.Tensor) -> torch.Tensor:
+    """min(F @ PT, 1): (n_filters, n_pixels) x (B, n_pixels, n_bins) -> (B, n_filters, n_bins)."""
+    d = torch.matmul(filters, patch_trans)
+    return torch.clamp(d, max=1.0)
+
+
+def ring_distances(filters: torch.Tensor, pt1: torch.Tensor,
+                   pt2: torch.Tensor, n_symmetries: int = 8) -> torch.Tensor:
+    """(B, n_rings) float32: sum over bins and the symmetric offsets of a
+    ring of (trunc(F@PT2) - trunc(F@PT1))^2. Filters are ring-major
+    (n_symmetries consecutive rows per ring)."""
+    d1 = pooled_descriptors(filters, pt1)
+    d2 = pooled_descriptors(filters, pt2)
+    sq = (d2 - d1) ** 2
+    b, f, _ = sq.shape
+    per_filter = sq.sum(dim=2)
+    return per_filter.reshape(b, f // n_symmetries, n_symmetries).sum(dim=2)
+
+
+def unprojected_diffs(sel_filters: torch.Tensor, pt1: torch.Tensor,
+                      pt2: torch.Tensor) -> torch.Tensor:
+    """(B, n_sel * n_bins) rows of (Desc1 - Desc2) flattened row-major
+    (reference: src/comp-uprjdists.cpp:320-330)."""
+    diff = (pooled_descriptors(sel_filters, pt1)
+            - pooled_descriptors(sel_filters, pt2))
+    return diff.reshape(diff.shape[0], -1)

@@ -1,0 +1,283 @@
+"""The port's PR-RDA solver and the plain versions of kernels B, C and D,
+held against the JAX package (its Pallas kernels in interpret mode) on the
+same numpy inputs and the same sampled block offsets.
+
+The JAX wrappers draw their offsets from a PRNG key inside; ``jax_offsets``
+reproduces that draw so the port's wrappers get the identical table, and
+``JaxDraws`` stands in for the port's draw functions with the JAX key
+schedule so whole chunks and runs can be compared sample for sample.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from opencv_dlco_tpu.models import pr_rda as jax_pr
+from opencv_dlco_tpu.ops import fused_rda as jax_fused
+
+import opencv_dlco_tpu_torch.models.pr_rda as port_pr
+from opencv_dlco_tpu_torch.ops.fused_rda import (
+    draw_block_offsets,
+    fused_block_grad,
+    fused_block_train,
+    fused_block_train_wide,
+)
+
+# tolerances of the JAX suite (tests/test_fused_rda.py)
+F32 = dict(rtol=3e-5, atol=3e-4)
+BF16 = dict(rtol=5e-3, atol=0.5)
+
+
+def jax_offsets(key, n_steps, n_pos, n_neg, batch, tile_b):
+    """The (n_steps, 2) table the JAX fused wrappers draw from ``key``
+    (ops/fused_rda.py:191-199); with tile_b = 1 also the row starts of the
+    JAX block scan (models/pr_rda.py:73-82)."""
+    def draw(k):
+        kp, kn = jax.random.split(k)
+        ip = jax.random.randint(kp, (), 0, (n_pos - batch) // tile_b + 1)
+        ineg = jax.random.randint(kn, (), 0, (n_neg - batch) // tile_b + 1)
+        return jnp.stack([ip, ineg]).astype(jnp.int32)
+
+    return torch.from_numpy(
+        np.array(jax.vmap(draw)(jax.random.split(key, n_steps))))
+
+
+class JaxDraws:
+    """Drop-in for the port's draw functions that follows the JAX key
+    schedule of run_pr_sweep / prlearn / pr_train: one key split per chunk
+    (sweep.py:244), then the per-step draws of that chunk."""
+
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+
+    def _sub(self):
+        self.key, sub = jax.random.split(self.key)
+        return sub
+
+    def block_offsets(self, gen, n_steps, n_pos, n_neg, batch, tile_b):
+        return jax_offsets(self._sub(), n_steps, n_pos, n_neg, batch, tile_b)
+
+    def gather_rows(self, gen, n_steps, n_pos, n_neg, batch):
+        ips, ins = [], []
+        for k in jax.random.split(self._sub(), n_steps):
+            kp, kn = jax.random.split(k)
+            ips.append(np.array(jax.random.randint(kp, (batch,), 0, n_pos)))
+            ins.append(np.array(jax.random.randint(kn, (batch,), 0, n_neg)))
+        return torch.from_numpy(np.stack(ips)), torch.from_numpy(np.stack(ins))
+
+    def install(self, monkeypatch):
+        monkeypatch.setattr(port_pr, "draw_block_offsets", self.block_offsets)
+        monkeypatch.setattr(port_pr, "draw_gather_rows", self.gather_rows)
+
+
+def _splits(seed, n=1024, f=384, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    pos = np.abs(rng.normal(1.0, 0.5, (n, f))).astype(np.float32)
+    neg = np.abs(rng.normal(1.2, 0.5, (n, f))).astype(np.float32)
+    return pos, neg
+
+
+def _grid(s):
+    return (np.geomspace(0.005, 0.08, s).astype(np.float32),
+            np.geomspace(0.02, 0.5, s).astype(np.float32))
+
+
+def _t(x, bf16=False):
+    t = torch.from_numpy(np.array(x))
+    return t.to(torch.bfloat16) if bf16 else t
+
+
+def _j(x, bf16=False):
+    a = jnp.asarray(x)
+    return a.astype(jnp.bfloat16) if bf16 else a
+
+
+# -- kernel D ------------------------------------------------------------------
+
+@pytest.mark.parametrize("s_dim,bf16", [(1, False), (8, False), (1, True)])
+def test_kernel_d_plain_matches_pallas(s_dim, bf16):
+    pos, neg = _splits(11)
+    rng = np.random.default_rng(3)
+    w = np.abs(rng.normal(0, 0.1, (s_dim, pos.shape[1]))).astype(np.float32)
+    tol = BF16 if bf16 else dict(rtol=2e-5, atol=2e-4)
+    for ip, ineg in [(0, 0), (3, 1), (6, 6)]:
+        ours = fused_block_grad(_t(pos, bf16), _t(neg, bf16), _t(w), ip,
+                                ineg, batch=256, tile_b=128).numpy()
+        ref = jax_fused.fused_block_grad(
+            _j(pos, bf16), _j(neg, bf16), _j(w, bf16), jnp.int32(ip),
+            jnp.int32(ineg), batch=256, tile_b=128, interpret=True)
+        np.testing.assert_allclose(ours, np.asarray(ref), **tol)
+
+
+# -- kernel C ------------------------------------------------------------------
+
+@pytest.mark.parametrize("s_dim,bf16", [(1, False), (4, False), (1, True)])
+def test_kernel_c_plain_matches_pallas(s_dim, bf16):
+    pos, neg = _splits(16)
+    mu, gamma = _grid(s_dim)
+    f = pos.shape[1]
+    key = jax.random.PRNGKey(9)
+    w0 = np.zeros((s_dim, f), np.float32)
+    w_j, df_j, t_j = jax_fused.fused_block_train(
+        _j(pos, bf16), _j(neg, bf16), _j(w0), _j(w0), jnp.int32(0), _j(mu),
+        _j(gamma), key, batch=256, n_steps=5, tile_b=128, interpret=True)
+    offs = jax_offsets(key, 5, 1024, 1024, 256, 128)
+    w, df, t = fused_block_train(_t(pos, bf16), _t(neg, bf16), _t(w0),
+                                 _t(w0), 0, _t(mu), _t(gamma), offs,
+                                 batch=256, tile_b=128)
+    assert t == int(t_j) == 5 * 256
+    tol = BF16 if bf16 else F32
+    np.testing.assert_allclose(df.numpy(), np.asarray(df_j), **F32)
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_j), **tol)
+
+
+# -- kernel B ------------------------------------------------------------------
+
+@pytest.mark.parametrize("twin", ["grid", "pipelined"])
+def test_kernel_b_plain_matches_both_pallas_twins(twin):
+    """One Hopper kernel serves both TPU twins: its plain version is held
+    against each, f32 splits, from a nonzero starting state."""
+    pos, neg = _splits(17)
+    s_dim, f = 16, pos.shape[1]
+    mu, gamma = _grid(s_dim)
+    rng = np.random.default_rng(4)
+    df0 = (-np.abs(rng.normal(0, 0.02, (s_dim, f)))).astype(np.float32)
+    w0 = np.maximum(0, -np.sqrt(512) / gamma[:, None]
+                    * (df0 + mu[:, None])).astype(np.float32)
+    key = jax.random.PRNGKey(21)
+    fn = (jax_fused.fused_block_train_wide if twin == "grid"
+          else jax_fused.fused_block_train_wide_pipelined)
+    w_j, df_j, t_j = fn(_j(pos), _j(neg), _j(w0), _j(df0), jnp.int32(512),
+                        _j(mu), _j(gamma), key, batch=256, n_steps=5,
+                        tile_b=128, interpret=True)
+    offs = jax_offsets(key, 5, 1024, 1024, 256, 128)
+    w, df, t = fused_block_train_wide(_t(pos), _t(neg), _t(w0), _t(df0), 512,
+                                      _t(mu), _t(gamma), offs, batch=256,
+                                      tile_b=128)
+    assert t == int(t_j)
+    np.testing.assert_allclose(df.numpy(), np.asarray(df_j), **F32)
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_j), **F32)
+
+
+def test_kernel_b_plain_matches_pallas_bf16():
+    """bf16 splits with the resident w at bf16: df * t (the summed
+    subgradient) within the JAX suite's bf16 subgradient tolerance."""
+    pos, neg = _splits(18)
+    s_dim, f = 16, pos.shape[1]
+    mu, gamma = _grid(s_dim)
+    w0 = np.zeros((s_dim, f), np.float32)
+    key = jax.random.PRNGKey(22)
+    w_j, df_j, t_j = jax_fused.fused_block_train_wide(
+        _j(pos, True), _j(neg, True), _j(w0), _j(w0), jnp.int32(0), _j(mu),
+        _j(gamma), key, batch=256, n_steps=4, tile_b=128, interpret=True)
+    offs = jax_offsets(key, 4, 1024, 1024, 256, 128)
+    w, df, t = fused_block_train_wide(_t(pos, True), _t(neg, True), _t(w0),
+                                      _t(w0), 0, _t(mu), _t(gamma), offs,
+                                      batch=256, tile_b=128)
+    np.testing.assert_allclose(df.numpy() * t, np.asarray(df_j) * t, **BF16)
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_j), **BF16)
+
+
+def test_block_offsets_distribution():
+    """draw_block_offsets: one uniform draw per side per step over every
+    tile-aligned window, int32, inside the split."""
+    gen = torch.Generator().manual_seed(0)
+    offs = draw_block_offsets(gen, 4000, 1024, 896, 256, 128)
+    assert offs.dtype == torch.int32 and offs.shape == (4000, 2)
+    assert set(offs[:, 0].tolist()) == set(range(7))
+    assert set(offs[:, 1].tolist()) == set(range(6))
+
+
+def test_wrappers_reject_bad_offsets():
+    pos, neg = _splits(1, n=512, f=64)
+    w = torch.zeros((1, 64))
+    with pytest.raises(ValueError):
+        fused_block_grad(_t(pos), _t(neg), w, 3, 0, batch=256, tile_b=128)
+    with pytest.raises(ValueError):
+        fused_block_train(_t(pos), _t(neg), w, w, 0, torch.ones(1),
+                          torch.ones(1), [[0, 0]], batch=200, tile_b=128)
+
+
+# -- the solver ----------------------------------------------------------------
+
+@pytest.mark.parametrize("sampling,s_dim,split", [
+    ("block", 3, "f32"), ("gather", 3, "f32"), ("block", 2, "bf16"),
+    ("block_fused", 1, "f32"), ("block_fused", 16, "f32")])
+def test_pr_train_chunk_matches_jax(monkeypatch, sampling, s_dim, split):
+    """pr_train_chunk through every sampling mode and both fused kernels,
+    with the JAX key schedule, from a JAX mid-run state."""
+    JaxDraws(0).install(monkeypatch)
+    pos, neg = _splits(19, n=512, f=256)
+    bf16 = split == "bf16"
+    mu, gamma = _grid(s_dim)
+    batch = 128 if sampling == "block_fused" else 64
+    key = jax.random.PRNGKey(0)
+    _, sub = jax.random.split(key)
+    st_j = jax_pr.pr_train_chunk(
+        _j(pos, bf16), _j(neg, bf16), _j(mu), _j(gamma),
+        jax_pr.pr_init(256, s_dim), sub, batch=batch, n_steps=4,
+        sampling=sampling)
+    st = port_pr.pr_train_chunk(
+        _t(pos, bf16), _t(neg, bf16), _t(mu), _t(gamma),
+        port_pr.pr_init(256, s_dim, device="cpu"), None, batch=batch,
+        n_steps=4, sampling=sampling)
+    assert st.t == int(st_j.t) == 4 * batch
+    np.testing.assert_allclose(st.df_avg.numpy(), np.asarray(st_j.df_avg),
+                               **F32)
+    np.testing.assert_allclose(st.w.numpy(), np.asarray(st_j.w), **F32)
+
+
+def test_pr_validate_matches_jax():
+    rng = np.random.default_rng(20)
+    pos_val = np.abs(rng.normal(1.0, 0.5, (300, 64))).astype(np.float32)
+    neg_val = np.abs(rng.normal(1.3, 0.5, (400, 64))).astype(np.float32)
+    w = np.abs(rng.normal(0, 0.05, (5, 64))).astype(np.float32)
+    w[2] = 0.0
+    mu = np.linspace(0.01, 0.05, 5).astype(np.float32)
+    ref = jax_pr.pr_validate(jnp.asarray(pos_val), jnp.asarray(neg_val),
+                             jnp.asarray(mu),
+                             jax_pr.PRState(jnp.asarray(w), jnp.asarray(w),
+                                            jnp.int32(0)))
+    got = port_pr.pr_validate(_t(pos_val), _t(neg_val), _t(mu),
+                              port_pr.pr_state_from_numpy(w, w, 0, "cpu"))
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-7)
+
+
+def test_pr_state_numpy_round_trip():
+    """A JAX solver state carries into the port and back unchanged."""
+    st_j = jax_pr.PRState(
+        w=jnp.asarray(np.random.default_rng(1).random((3, 40)), jnp.float32),
+        df_avg=-jnp.ones((3, 40), jnp.float32), t=jnp.int32(4096))
+    st = port_pr.pr_state_from_numpy(np.asarray(st_j.w),
+                                     np.asarray(st_j.df_avg),
+                                     np.asarray(st_j.t), device="cpu")
+    assert st.t == 4096 and st.w.dtype == torch.float32
+    w, df, t = port_pr.pr_state_to_numpy(st)
+    np.testing.assert_array_equal(w, np.asarray(st_j.w))
+    np.testing.assert_array_equal(df, np.asarray(st_j.df_avg))
+    assert t.dtype == np.int32 and int(t) == 4096
+
+
+def test_pr_train_matches_jax(monkeypatch):
+    """The single-run host driver: same history records, same best w."""
+    from opencv_dlco_tpu.utils.configs import PRLearnConfig as JaxCfg
+    from opencv_dlco_tpu_torch.utils.configs import PRLearnConfig
+
+    JaxDraws(5).install(monkeypatch)
+    pos, neg = _splits(24, n=400, f=128)
+    kw = dict(mu=0.01, gamma=0.1, n_iter=600, log_step=200, batch=50,
+              seed=5)
+    w_j, hist_j = jax_pr.pr_train(_j(pos[:300]), _j(neg[:300]),
+                                  _j(pos[300:]), _j(neg[300:]), JaxCfg(**kw))
+    w, hist = port_pr.pr_train(_t(pos[:300]), _t(neg[:300]), _t(pos[300:]),
+                               _t(neg[300:]), PRLearnConfig(**kw))
+    assert len(hist) == len(hist_j) == 3
+    for a, b in zip(hist, hist_j):
+        assert (a["t"], a["nnz"], a["best"]) == (b["t"], b["nnz"], b["best"])
+        assert a["obj"] == pytest.approx(b["obj"], rel=1e-5)
+    np.testing.assert_allclose(w, w_j, **F32)
