@@ -13,14 +13,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
    8,192 synthetic Brown-shaped pairs and the PR budget to 3 log periods,
    for the time limit. Kernel launch counts are set to 0 just before and
    read just after; the run fails if kernel A, B or C did not launch.
-3. Checks the output: distance matrix shape, finiteness and the
-   positive/negative separation, the first 64 rows against the f32 route,
-   a finite 256-entry sweep, saved w histories, a ranked best row.
-4. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes and times kernel, plain version, the same products
-   through torch.matmul (``library_ms``, a yardstick the port never calls),
-   and the bound (bytes or operations over the card's peak rates).
-5. Prints one JSON line with every kernel, then the card line, then
+3. Drives stages 7-11 and the exported descriptor's evaluation: the best
+   ranked PR row at the published width, 512 < dim <= 640 (the reference
+   cap; more PR log periods until one exists), compunproj on the 8,192 pairs, the full 5x9 PJ grid
+   (batch 200, log_step 500, psd_ns, 24 Newton-Schulz iterations) for 2
+   log periods, one exact-mode pjlearn for 1, pjstats, pj_rank_cross and
+   the 48/64/80/120-D exports, each round-tripped through
+   ``parse_vgg_header`` and ``VGGDescriptor.from_header``; then the 64-D
+   descriptor on all 16,384 patches: verification, matching mAP (k = 10),
+   the 2-NN ratio test and mutual nearest neighbours. Counts are set to 0
+   just before and read just after; the run fails if F or H did not launch.
+4. Checks the outputs: distance matrix shape, finiteness and separation,
+   the first 64 rows against the f32 route, a finite sweep, saved
+   histories, a ranked row; finite diffs and PJ models, four exports that
+   parse, finite descriptors, fused matching against the scan path, and
+   each kNN kernel call of the evaluation against the plain version.
+5. Holds each kernel against its plain PyTorch version on the card at the
+   main path's shapes (E, F, H at the benchmark's shapes, F and H also at
+   the 120-D export's width and at widths past one D chunk) and times
+   kernel, plain version, one library call computing the same products or
+   function where there is one (``library_ms``, a yardstick the port never
+   calls), and the bound (bytes or operations over the card's peaks).
+6. Prints one JSON line with every kernel, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line. Any failed phase
    exits non-zero without that line.
 """
@@ -40,9 +54,20 @@ PR_BATCH = 2048
 LOG_STEP = 100_000                 # the reference-scale log period
 STEPS_PER_LOG = LOG_STEP // PR_BATCH
 N_LOGS = 3
+PR_MAX_DIM = 640                   # the reference cap (run_reference_scale)
+PR_MIN_DIM = 512                   # published PR widths lie above this
+PJ_BATCH = 200
+PJ_LOG_STEP = 500
+PJ_SWEEP_LOGS = 2
+EXPORT_DIMS = (48, 64, 80, 120)
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 FFMA, HBM3
 PEAK = {"bf16": 989e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# CUDA-core instructions that are not FMAs: the FP32 pipe issues one per
+# lane per clock (half the FFMA FLOP peak); compare/min/max run at half
+# that (64 per SM per clock in the CUDA guide's throughput table)
+F32_INSTR_PER_S = PEAK["f32"] / 2
+MINMAX_INSTR_PER_S = F32_INSTR_PER_S / 2
 
 # tolerances of the JAX suite (tests/test_fused_rda.py, test_pallas_fused.py)
 TOL_F32 = (3e-5, 3e-4)
@@ -71,11 +96,26 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes, n_ops, kind):
+def bound_ms(n_bytes, n_ops, kind, f32_instr=0):
+    """The larger of the bytes over HBM's rate and the operations over
+    their unit's peak; ``f32_instr`` are CUDA-core instructions other than
+    FMAs done beside the ``n_ops`` (a kernel's epilogue), bounded on their
+    own at F32_INSTR_PER_S."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / PEAK[kind]
+    t_ops = max(n_ops / PEAK[kind], f32_instr / F32_INSTR_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def timer(torch, secs):
+    """timed(name, fn, ...): run fn, synchronise, add its seconds."""
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        secs[name] = round(time.perf_counter() - t0, 3)
+        return out
+    return timed
 
 
 def check_close(name, got, ref, tol):
@@ -101,14 +141,7 @@ def run_main_path(torch, root):
                    desc_cfg=DescriptorConfig(matmul_precision="default"),
                    device="cuda")
     secs = {}
-
-    def timed(name, fn, *a, **kw):
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        torch.cuda.synchronize()
-        secs[name] = round(time.perf_counter() - t0, 3)
-        return out
-
+    timed = timer(torch, secs)
     timed("02_genpr", ws.genpr)
     dist = timed("03_compdist", ws.compdist, "synsmoke")
     # 3 log periods leave the iterates dense, so the reference's 640-D cap
@@ -171,6 +204,171 @@ def check_main_path(torch, np, ws, out):
                 best_fpr95=best["mean_fpr95"], best_dim=best["dim"],
                 best_model=os.path.basename(best["model"]),
                 best_row=best["row"], n_rows_ranked=len(out["recs"]))
+
+
+def pick_pr_row(torch, ws, out, secs):
+    """The PR row stages 7-11 run on: pr_rank's best row at the published
+    width, 512 < dim <= 640 (the reference cap; the committed
+    E2E_FULL.json winner is 576-D). If no ranked row lies there, the PR
+    sweep reruns with twice the log periods, up to 24. Returns (row, the
+    best row under the cap whatever its width, log periods)."""
+    from opencv_dlco_tpu_torch.parallel.sweep import run_pr_sweep
+    from opencv_dlco_tpu_torch.utils.configs import (
+        PRLearnConfig, PRSweepGrid)
+
+    n_logs = N_LOGS
+    recs = out["recs"]
+    timed = timer(torch, secs)
+    while True:
+        capped = [r for r in ws.pr_rank(recs, top_k=len(recs))
+                  if 0 < r["dim"] <= PR_MAX_DIM]
+        band = [r for r in capped if r["dim"] > PR_MIN_DIM]
+        if band:
+            return band[0], capped[0], n_logs
+        if n_logs >= 24:
+            raise AssertionError(
+                f"no ranked PR row with {PR_MIN_DIM} < dim <= {PR_MAX_DIM} "
+                f"after {n_logs} log periods; under the cap: "
+                f"{sorted({r['dim'] for r in capped})}")
+        n_logs *= 2
+        base = PRLearnConfig(
+            n_iter=n_logs * STEPS_PER_LOG * PR_BATCH, log_step=LOG_STEP,
+            batch=PR_BATCH, max_dim=ws.pool_cfg.n_filters * 8,
+            sampling="block_fused", split_dtype="bf16",
+            matmul_precision="default")
+        sweep = timed(f"04_prsweep[{n_logs} logs]", run_pr_sweep, ws,
+                      "synsmoke", PRSweepGrid(), base)
+        models = sorted({r["model"] for r in sweep})
+        recs = timed(f"05_prstats[{n_logs} logs]", ws.prstats, models,
+                     {"synsmoke": out["dist"]})
+
+
+def run_slice2(torch, ws, pr_ref):
+    """Stages 7-11 and the evaluation through the entry points a user
+    calls; returns facts for the checks and the per-stage seconds."""
+    from opencv_dlco_tpu_torch.data.brown import pair_labels
+    from opencv_dlco_tpu_torch.data.store import ArtifactStore
+    from opencv_dlco_tpu_torch.models.vgg import VGGDescriptor
+    from opencv_dlco_tpu_torch.ops.knn import (
+        knn_match, mutual_nearest, ratio_test)
+    from opencv_dlco_tpu_torch.parallel.sweep import run_pj_sweep
+    from opencv_dlco_tpu_torch.pipeline.e2e import _roundtrip_header
+    from opencv_dlco_tpu_torch.pipeline.eval import (
+        matching_map, verification)
+    from opencv_dlco_tpu_torch.utils.configs import (
+        PJLearnConfig, PJSweepGrid)
+
+    secs = {}
+    timed = timer(torch, secs)
+    unproj = timed("07_compunproj", ws.compunproj, "synsmoke", pr_ref)
+    sweep_cfg = PJLearnConfig(n_iter=PJ_SWEEP_LOGS * PJ_LOG_STEP,
+                              log_step=PJ_LOG_STEP, batch=PJ_BATCH,
+                              eigh_mode="psd_ns", ns_iters=24)
+    sweep = timed("08_pjsweep", run_pj_sweep, ws, unproj, PJSweepGrid(),
+                  sweep_cfg)
+    # a (mu, gamma) outside the grid, so its artifact is its own
+    single = timed("08_pjlearn", ws.pjlearn, unproj, PJLearnConfig(
+        mu=0.0015, gamma=0.3, n_iter=PJ_LOG_STEP, log_step=PJ_LOG_STEP,
+        batch=PJ_BATCH, eigh_mode="exact"))
+    models = [r["model"] for r in sweep] + [single]
+    recs = timed("09_pjstats", ws.pjstats, models, {"synsmoke": unproj})
+    exports, winners = {}, {}
+    for dim in EXPORT_DIMS:
+        ranked = timed(f"10_pj_rank[{dim}]", ws.pj_rank_cross, recs,
+                       max_dim=dim)
+        if not ranked:
+            raise AssertionError(f"no PJ model ranked under {dim}-D; "
+                                 f"ranks: {sorted(r['dim'] for r in recs)}")
+        winners[dim] = ranked[0]
+        path = timed(f"11_export[{dim}]", ws.export, pr_ref,
+                     ranked[0]["model"], f"vgg_generated_{dim}.i")
+        exports[dim] = _roundtrip_header(path, device="cuda")
+
+    with ArtifactStore(ws.path("dataset", "synsmoke.h5"), "r") as st:
+        idx = st.read("Indices")
+        patches = st.read("Patches")
+    with open(exports[64]["path"]) as fh:
+        model = VGGDescriptor.from_header(fh.read(), device="cuda")
+    desc = timed("eval_describe", model.describe, patches)
+    d1 = desc[torch.from_numpy(idx[:, 0]).long().cuda()]
+    d2 = desc[torch.from_numpy(idx[:, 2]).long().cuda()]
+    labels = torch.from_numpy(pair_labels(idx)).cuda()
+    ver = timed("eval_verification", verification, d1, d2, labels)
+    pos = labels == 1
+    q, t = d1[pos].contiguous(), d2[pos].contiguous()
+    gt = torch.arange(q.shape[0], dtype=torch.int32, device="cuda")
+    mm = timed("eval_matching_map", matching_map, q, t, gt, k=10)
+    d_2, i_2 = timed("eval_knn2", knn_match, q, t, k=2)
+    m_rt, ok_rt = ratio_test(d_2, i_2)
+    m_mu, ok_mu = timed("eval_mutual", mutual_nearest, q, t)
+    evals = dict(
+        n_desc=int(desc.shape[0]), dim=int(desc.shape[1]),
+        desc_finite=bool(torch.isfinite(desc).all()),
+        fpr95=ver["fpr95"], auc=ver["auc"], matching_map=mm["map"],
+        precision_at_1=mm["precision_at_1"], n_queries=mm["n_queries"],
+        ratio_matches=int(ok_rt.sum()),
+        ratio_correct=int((m_rt == gt).sum()),
+        mutual_matches=int(ok_mu.sum()),
+        mutual_correct=int((m_mu == gt).sum()))
+    return dict(unproj=unproj, sweep=sweep, single=single, recs=recs,
+                winners=winners, exports=exports, evals=evals, q=q, t=t,
+                i_2=i_2), secs
+
+
+def check_slice2(torch, np, out):
+    from opencv_dlco_tpu_torch.data.store import ArtifactStore as store
+    from opencv_dlco_tpu_torch.ops.knn import knn_match
+    from opencv_dlco_tpu_torch.ops.knn_fused import knn2_fused, knnk_fused
+
+    with store(out["unproj"], "r") as st:
+        d = st.read("Distance")
+    assert d.shape[0] == N_PAIRS and d.shape[1] % 8 == 0, d.shape
+    assert np.all(np.isfinite(d)), "non-finite unprojected diffs"
+    assert len(out["sweep"]) == 45
+    for r in out["recs"]:
+        assert 0.0 <= r["fpr95"] <= 1.0 and 0.0 <= r["auc"] <= 1.0, r
+    with store(out["single"], "r") as st:
+        assert st.get_meta("done_iters") == str(PJ_LOG_STEP)
+        assert np.all(np.isfinite(st.read("A")))
+    for dim, ex in out["exports"].items():
+        assert ex["ok"] and ex["pj_in"] == 8 * ex["n_pr"], ex
+        assert ex["pj_in"] == d.shape[1] and 0 < ex["dim"] <= dim, ex
+    ev = out["evals"]
+    assert ev["desc_finite"] and ev["dim"] == out["exports"][64]["dim"]
+    assert 0.0 <= ev["fpr95"] <= 1.0 and 0.5 < ev["auc"] <= 1.0, ev
+    # the fused 2-NN against the f32 scan path on the same descriptors:
+    # bf16 match identity, the kernels' contract
+    _, i_s = knn_match(out["q"], out["t"], k=2, fused=False)
+    top1 = float((i_s[:, 0] == out["i_2"][:, 0]).float().mean())
+    assert top1 >= 0.99, f"fused vs scan top-1 identity {top1}"
+    # every kernel call of the evaluation, repeated on its inputs, against
+    # the plain version: the 2-NN (F), matching_map's k = 10 (H) and
+    # mutual_nearest's two 1-NN directions (F)
+    q, t = out["q"], out["t"]
+    held = {}
+    for what, a, b, k, wrapper in (
+            ("knn2", q, t, 2, knn2_fused), ("matching_k10", q, t, 10,
+                                            knnk_fused),
+            ("mutual_qt", q, t, 1, knn2_fused),
+            ("mutual_tq", t, q, 1, knn2_fused)):
+        before = wrapper.launches
+        got = knn_match(a, b, k=k)
+        if wrapper.launches != before + 1:
+            raise AssertionError(f"{what}: knn_match did not launch "
+                                 f"{wrapper.__name__}")
+        held[what] = hold_knn(torch, f"main path {what}", a, b, k, got,
+                              bf16=True)
+    return dict(unproj_width=int(d.shape[1]),
+                pj_ranks=sorted(int(r["dim"]) for r in out["recs"]),
+                winners={dim: {"model": os.path.basename(w["model"]),
+                               "dim": w["dim"],
+                               "fpr95": w["mean_fpr95"]}
+                         for dim, w in out["winners"].items()},
+                exports={dim: {k: v for k, v in ex.items() if k != "path"}
+                         for dim, ex in out["exports"].items()},
+                fused_vs_scan_top1=top1,
+                kernels_vs_plain={w: {"max_abs_err": e, "tolerance": tol}
+                                  for w, (e, tol) in held.items()}, **ev)
 
 
 def kernel_checks(torch, ws, dist):
@@ -323,6 +521,177 @@ def kernel_checks(torch, ws, dist):
     return results
 
 
+KNN_N = 65_536                     # bench_matching's shape (bench.py:737)
+KNN_F32_N = 8192
+KNN_WIDE_N = 16_384
+HINGE_N = 50_000                   # bench.py:318's size
+
+
+def clustered(torch, n, d, seed, scale=1.0):
+    """Realistic-margin descriptors (tests/test_knn_pallas.py:18-28): every
+    query is a train row plus 5% noise; the train rows are permuted."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centres = torch.randn((n, d), generator=g, device="cuda")
+    q = centres + 0.05 * torch.randn((n, d), generator=g, device="cuda")
+    t = centres[torch.randperm(n, generator=g, device="cuda")]
+    return (q * scale).contiguous(), (t * scale).contiguous()
+
+
+def hold_knn(torch, name, q, t, k, got, bf16):
+    """Hold kernel F's or H's (dists, idx) for q, t against knn_plain on
+    the same inputs. f32 mode: indices identical, distances rtol/atol
+    1e-5. bf16 mode (tensor-core f32 accumulation vs cuBLAS, in another
+    order): identity >= 0.99 on every one of the k columns and of the
+    ratio-test matches, and agreeing entries within 1e-3 relative plus
+    1e-5 of |q|^2 + |t|^2 (the magnitude the expanded form cancels, whose
+    f32 rounding the two orders differ by). Returns (max abs err on
+    agreeing entries, the tolerance met)."""
+    from opencv_dlco_tpu_torch.ops.knn import ratio_test
+    from opencv_dlco_tpu_torch.ops.knn_fused import knn_plain
+
+    dk, ik = got
+    dp, ip = knn_plain(q, t, k, bf16=bf16)
+    torch.cuda.synchronize()
+    same = ik == ip
+    if not bf16:
+        err = check_close(name, dk, dp, (1e-5, 1e-5))
+        # indices differ only at near-ties (two summation orders of the
+        # same f32 distances): the kernel's pick is at the plain list's
+        # distance there within the tolerance, and no row repeats an index
+        rows, slots = (~same).nonzero(as_tuple=True)
+        pick = ik[rows, slots].long()
+        qs, ts = q[rows].float(), t[pick.clamp(min=0)].float()
+        d_pick = torch.clamp((qs * qs).sum(1) + (ts * ts).sum(1)
+                             - 2.0 * (qs * ts).sum(1), min=0.0)
+        ref = dp[rows, slots]
+        tie = (pick >= 0) & ((d_pick - ref).abs() <= 1e-5 + 1e-5 * ref.abs())
+        srt = ik.sort(dim=1).values
+        dup = (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)
+        if not bool(tie.all()) or bool(dup.any()):
+            raise AssertionError(
+                f"{name}: {int((~tie).sum())} indices differ in f32 mode "
+                f"beyond near-ties, {int(dup.sum())} repeated")
+        return err, (f"indices identical except {rows.numel()} near-tie swaps "
+                     f"of {ik.numel()}, rtol/atol 1e-5")
+    cols = same.float().mean(dim=0)
+    rt = 1.0
+    if k >= 2:
+        mk, _ = ratio_test(dk, ik)
+        mp, _ = ratio_test(dp, ip)
+        rt = float((mk == mp).float().mean())
+    if float(cols.min()) < 0.99 or rt < 0.99:
+        raise AssertionError(f"{name}: column identity "
+                             f"{[round(float(c), 5) for c in cols]}, "
+                             f"ratio-test identity {rt}")
+    qb = q.to(torch.bfloat16).float()
+    tb = t.to(torch.bfloat16).float()
+    mag = (qb * qb).sum(1)[:, None] + (tb * tb).sum(1)[ip.clamp(min=0).long()]
+    real = same & (ip >= 0)
+    err = torch.where(real, (dk - dp).abs(), torch.zeros_like(dk))
+    bad = err > 1e-3 * dp.abs() + 1e-5 * mag
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} agreeing distances "
+                             f"outside 1e-3 rel + 1e-5 |q|^2+|t|^2; max abs "
+                             f"err {float(err.max())}")
+    return float(err.max()), (
+        f"column identity >= {float(cols.min()):.5f}, ratio-test identity "
+        f"{rt:.5f}, agreeing distances within 1e-3 rel + 1e-5 (|q|^2+|t|^2)")
+
+
+def knn_row(torch, name, fn, k, n, d, bf16, seed):
+    """One kernel-vs-plain check of F or H with its times and bound."""
+    from opencv_dlco_tpu_torch.ops.knn_fused import knn_plain
+
+    # f32 mode on unit-norm descriptors: one f32 rounding of
+    # |q|^2 + |t|^2 is then ~1e-7, below the 1e-5 tolerance
+    q, t = clustered(torch, n, d, seed, scale=1.0 if bf16 else d ** -0.5)
+    err, tol = hold_knn(torch, name, q, t, k, fn(q, t, bf16=bf16), bf16)
+    el = 2 if bf16 else 4
+    # epilogue and selection: ~4 CUDA-core instructions per candidate
+    bnd, by = bound_ms(2 * n * d * el + n * k * 8,
+                       2 * n * n * d, "bf16" if bf16 else "f32",
+                       f32_instr=4 * n * n)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    qc, tc = q.to(dt), t.to(dt)
+    row = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: fn(q, t, bf16=bf16), 5),
+        plain_ms=time_ms(torch, lambda: knn_plain(q, t, k, bf16=bf16), 1),
+        bound_ms=bnd, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.matmul(qc, tc.T), 5),
+        shape=f"{n} x {n}, d {d}, k {k}, {'bf16' if bf16 else 'f32'}",
+        tolerance=tol)
+    del q, t, qc, tc
+    torch.cuda.empty_cache()
+    return row
+
+
+def kernel_checks_2(torch):
+    """E, F and H against their plain versions on the card, with times,
+    bounds and yardsticks (E: the sorted form, no single library call
+    computes the all-pairs hinge; F, H: the q.t^T product in torch.matmul)."""
+    from opencv_dlco_tpu_torch.ops import hinge
+    from opencv_dlco_tpu_torch.ops.knn_fused import knn2_fused, knnk_fused
+
+    results = {}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    pos = 1.0 + 0.6 * torch.randn(HINGE_N, generator=g, device="cuda")
+    neg = 2.0 + 0.8 * torch.randn(HINGE_N, generator=g, device="cuda")
+    got = float(hinge.hinge_sum_blockwise(pos, neg))
+    ref = float(hinge.hinge_partials_plain(pos, neg).sum())
+    srt = float(hinge.hinge_sum_sorted(pos, neg))
+    # an f32 sum over 2.5e9 terms in three orders: relative 1e-5 of the total
+    for what, r in (("plain", ref), ("sorted", srt)):
+        if abs(got - r) > 1e-5 * abs(r):
+            raise AssertionError(f"E vs {what}: {got} vs {r}")
+    # per pair a subtract and an add on the FP32 pipe and a max on the
+    # min/max rate (no FMA among them); the slower of the two pipes bounds
+    pairs = HINGE_N * HINGE_N
+    t_ops = max(2 * pairs / F32_INSTR_PER_S, pairs / MINMAX_INSTR_PER_S)
+    t_bytes = 3 * HINGE_N * 4 / HBM_BYTES_PER_S
+    bnd = max(t_ops, t_bytes) * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    results["E"] = dict(
+        name="hinge_sum_blockwise", route="cuda",
+        source="opencv_dlco_tpu_torch/csrc/hinge.cu",
+        replaces="opencv_dlco_tpu/ops/hinge.py:49",
+        max_abs_err=abs(got - ref),
+        ms=time_ms(torch, lambda: hinge.hinge_sum_blockwise(pos, neg), 10),
+        plain_ms=time_ms(torch, lambda: hinge.hinge_partials_plain(
+            pos, neg).sum(), 2),
+        bound_ms=bnd, bound_by=by, library_ms=None,
+        sorted_ms=time_ms(torch, lambda: hinge.hinge_sum_sorted(pos, neg),
+                          10),
+        shape=f"P = N = {HINGE_N}, f32",
+        tolerance=f"total rel 1e-5 vs plain and sorted (sorted {srt})")
+    del pos, neg
+
+    def knnk10(q, t, bf16):
+        return knnk_fused(q, t, 10, bf16=bf16)
+
+    for key, name, fn, k, line in (
+            ("F", "knn2_fused", knn2_fused, 2, 69),
+            ("H", "knnk_fused", knnk10, 10, 110)):
+        base = dict(name=name, route="cuda",
+                    source="opencv_dlco_tpu_torch/csrc/knn.cu",
+                    replaces=f"opencv_dlco_tpu/ops/knn_pallas.py:{line}")
+        for d in (64, 128):
+            results[f"{key}{d}"] = dict(base, **knn_row(
+                torch, f"{key}[d={d}]", fn, k, KNN_N, d, True, seed=d + k))
+        results[f"{key}f32"] = dict(base, **knn_row(
+            torch, f"{key}[f32]", fn, k, KNN_F32_N, 64, False, seed=k))
+        # the 120-D export's width (padded to 128 in bf16 mode) and widths
+        # past one D chunk (bf16 600 -> 608 in 3 chunks, f32 576 in 5)
+        results[f"{key}120"] = dict(base, **knn_row(
+            torch, f"{key}[d=120]", fn, k, KNN_WIDE_N, 120, True, seed=k))
+        results[f"{key}600"] = dict(base, **knn_row(
+            torch, f"{key}[d=600]", fn, k, KNN_F32_N, 600, True, seed=k))
+        results[f"{key}f32_576"] = dict(base, **knn_row(
+            torch, f"{key}[f32, d=576]", fn, k, KNN_F32_N, 576, False,
+            seed=k))
+    return results
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -347,7 +716,8 @@ def main() -> int:
               flush=True)
 
         from opencv_dlco_tpu_torch.data.store import BACKEND
-        from opencv_dlco_tpu_torch.ops import cuda_build, fused_rda
+        from opencv_dlco_tpu_torch.ops import (
+            cuda_build, fused_rda, hinge, knn_fused)
         from opencv_dlco_tpu_torch.ops.pair_distance_fused import (
             ring_distances_fused)
         from opencv_dlco_tpu_torch.pipeline.e2e import (
@@ -375,17 +745,27 @@ def main() -> int:
         wrappers = {"A": ring_distances_fused,
                     "B": fused_rda.fused_block_train_wide,
                     "C": fused_rda.fused_block_train,
-                    "D": fused_rda.fused_block_grad}
+                    "D": fused_rda.fused_block_grad,
+                    "E": hinge.hinge_sum_blockwise,
+                    "F": knn_fused.knn2_fused,
+                    "H": knn_fused.knnk_fused}
+
+        def counted(fn, *a):
+            """Run one path with every count set to 0 just before it and
+            read just after."""
+            for w in wrappers.values():
+                w.launches = 0
+            result = fn(*a)
+            return result, {k: w.launches for k, w in wrappers.items()}
+
         # the stages' own log lines (one per step, stat and model row) go
         # to a file; this script prints the summary
         log_dir = os.path.join(HERE, "chiprun_out")
         os.makedirs(log_dir, exist_ok=True)
         with open(os.path.join(log_dir, "chip_smoke_stages.log"), "w") as fh:
-            for fn in wrappers.values():
-                fn.launches = 0
             with contextlib.redirect_stdout(fh):
-                ws, out, secs = run_main_path(torch, root)
-            launches = {k: fn.launches for k, fn in wrappers.items()}
+                (ws, out, secs), launches = counted(run_main_path, torch,
+                                                    root)
         print("stage seconds:", json.dumps(secs), flush=True)
         print("main-path launches:", json.dumps(launches), flush=True)
         missing = [k for k in "ABC" if launches[k] == 0]
@@ -395,15 +775,44 @@ def main() -> int:
         facts = check_main_path(torch, np, ws, out)
         print("main path:", json.dumps(facts), flush=True)
 
+        # -- stages 7-11 and the evaluation ---------------------------------
+        with open(os.path.join(log_dir, "chip_smoke_stages.log"), "a") as fh:
+            with contextlib.redirect_stdout(fh):
+                pick_secs = {}
+                best, best_capped, n_logs = pick_pr_row(torch, ws, out,
+                                                        pick_secs)
+                pr_ref = f"{best['model']}#{best['row']}"
+                (out2, secs2), launches2 = counted(run_slice2, torch, ws,
+                                                   pr_ref)
+        print(f"PR row for stages 7-11: {os.path.basename(pr_ref)} dim "
+              f"{best['dim']} mean FPR95 {best['mean_fpr95']} "
+              f"({n_logs} PR log periods); best row under the cap: "
+              f"{os.path.basename(best_capped['model'])}#"
+              f"{best_capped['row']} dim {best_capped['dim']} mean FPR95 "
+              f"{best_capped['mean_fpr95']}", flush=True)
+        if pick_secs:
+            print("PR reruns:", json.dumps(pick_secs), flush=True)
+        print("stage seconds 7-11:", json.dumps(secs2), flush=True)
+        print("stages 7-11 launches:", json.dumps(launches2), flush=True)
+        missing = [k for k in "FH" if launches2[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels {missing} never launched on "
+                                 f"stages 7-11 and the evaluation")
+        facts2 = check_slice2(torch, np, out2)
+        print("stages 7-11:", json.dumps(facts2), flush=True)
+        del out2
+
         res = kernel_checks(torch, ws, out["dist"])
+        res.update(kernel_checks_2(torch))
         for key, r in res.items():
             print(f"kernel {key}: " + json.dumps(r), flush=True)
         table = []
         for key, row in (("A", "A"), ("B", f"B{STEPS_PER_LOG}"), ("C", "C1"),
-                         ("D", "D")):
-            r = dict(res[row])
-            r.pop("shape")
-            table.append({**r, "launches": launches[key]})
+                         ("D", "D"), ("E", "E"), ("F", "F64"),
+                         ("H", "H64")):
+            r = {k: v for k, v in res[row].items()
+                 if k not in ("shape", "tolerance", "sorted_ms")}
+            table.append({**r, "launches": launches[key] + launches2[key]})
         print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
         shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"kernels": table}))

@@ -8,15 +8,18 @@ against each other on the same numpy inputs.
 Layout mirrors the JAX package:
 
 - ``ops``      — patch transform, pooling-region bank, ring distances,
-                 sorted hinge, ROC stats, and the wrappers of the hand-written
-                 CUDA kernels (``pair_distance_fused``, ``fused_rda``);
+                 hinge, ROC stats, k-NN matching, and the wrappers of the
+                 hand-written CUDA kernels (``pair_distance_fused``,
+                 ``fused_rda``, ``hinge``, ``knn_fused``);
 - ``csrc``     — the CUDA C++ sources of those kernels (``sm_90a``), built
                  with ``nvcc`` at first use (``ops/cuda_build.py``);
-- ``models``   — the PR RDA solver and PR model selection;
-- ``parallel`` — the single-device PR sweep engine;
-- ``data``     — HDF5 artifact store (same schema), Brown ingestion,
-                 synthetic data;
-- ``pipeline`` — stages 1-6 of the workflow over a Workspace directory;
+- ``models``   — the PR and PJ RDA solvers, model selection and the
+                 deployable VGG descriptor;
+- ``parallel`` — the single-device PR and PJ sweep engines;
+- ``data``     — HDF5 artifact store (same schema), Brown and HPatches
+                 ingestion, synthetic data;
+- ``pipeline`` — stages 1-11 of the workflow over a Workspace directory,
+                 the .i export and the descriptor evaluation protocols;
 - ``utils``    — configs, logs, progress, memory budget, checkpoints.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -26,8 +29,15 @@ CUDA tensor it launches the kernel or raises.
 
 import torch
 
-# The f32 paths are held against JAX Precision.HIGHEST: no TF32 anywhere.
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+
+def no_tf32() -> None:
+    """The f32 paths are held against JAX Precision.HIGHEST: no TF32 in
+    matmuls or convolutions. Set at import and again by the entry points
+    of the PJ learner and the VGG descriptor."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+no_tf32()
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Command-line interface of the port: stages 1-6 over a Workspace directory.
+"""Command-line interface of the port: stages 1-11 over a Workspace directory.
 
 The subcommands and flags of ``opencv_dlco_tpu.cli`` for the stages the
 port carries; each stage is idempotent (resume-safe). Runs on the CUDA
@@ -11,6 +11,13 @@ Usage examples:
     python -m opencv_dlco_tpu_torch.cli prlearn  -w ws --dataset liberty --mu 0.025 --gamma 0.1
     python -m opencv_dlco_tpu_torch.cli prsweep  -w ws --dataset liberty
     python -m opencv_dlco_tpu_torch.cli prstats  -w ws --datasets liberty,notredame
+    python -m opencv_dlco_tpu_torch.cli compunproj -w ws --dataset liberty --pr ws/pr-learn/...-pr.h5#7
+    python -m opencv_dlco_tpu_torch.cli pjlearn  -w ws --unproj ws/distances/...-unproj.h5
+    python -m opencv_dlco_tpu_torch.cli pjsweep  -w ws --unproj ws/distances/...-unproj.h5
+    python -m opencv_dlco_tpu_torch.cli pjstats  -w ws --max-dim 80
+    python -m opencv_dlco_tpu_torch.cli export   -w ws --pr ...-pr.h5#7 --pj ...-pj.h5 --out vgg_generated_64.i
+    python -m opencv_dlco_tpu_torch.cli workflow -w ws --datasets liberty,notredame
+    python -m opencv_dlco_tpu_torch.cli e2e      -w ws
 """
 
 from __future__ import annotations
@@ -78,6 +85,65 @@ def cmd_prstats(args):
         print(json.dumps(r))
 
 
+def cmd_compunproj(args):
+    print(f"unproj ready: {_ws(args).compunproj(args.dataset, args.pr)}")
+
+
+def cmd_pjlearn(args):
+    from .utils.configs import PJLearnConfig
+
+    cfg = PJLearnConfig(mu=args.mu, gamma=args.gamma, n_iter=args.iters,
+                        log_step=args.log_step, batch=args.batch,
+                        eigh_mode=args.eigh_mode)
+    print(f"pj model: {_ws(args).pjlearn(args.unproj, cfg)}")
+
+
+def cmd_pjsweep(args):
+    from .parallel.sweep import run_pj_sweep
+    from .utils.configs import PJLearnConfig, PJSweepGrid
+
+    base = PJLearnConfig(n_iter=args.iters, log_step=args.log_step,
+                         batch=args.batch, eigh_mode=args.eigh_mode)
+    results = run_pj_sweep(_ws(args), args.unproj, PJSweepGrid(), base)
+    print(json.dumps(results[:10], indent=2))
+
+
+def cmd_pjstats(args):
+    from .pipeline.stages import Workspace
+
+    models = sorted(glob.glob(os.path.join(args.workspace, "pj-learn",
+                                           "*-pj.h5")))
+    for r in Workspace.pj_rank(models, max_dim=args.max_dim):
+        print(json.dumps(r))
+
+
+def cmd_export(args):
+    print(f"exported: {_ws(args).export(args.pr, args.pj, args.out)}")
+
+
+def cmd_workflow(args):
+    from .utils.configs import PJLearnConfig, PRLearnConfig
+
+    out = _ws(args).run_full(
+        args.datasets.split(","),
+        pr_cfg=PRLearnConfig(n_iter=args.pr_iters, log_step=args.pr_log_step,
+                             batch=args.batch, max_dim=args.max_dim),
+        pj_cfg=PJLearnConfig(n_iter=args.pj_iters,
+                             log_step=args.pj_log_step),
+    )
+    print(json.dumps({"best_pr": out["best_pr"], "exports": out["exports"]},
+                     indent=2, default=str))
+
+
+def cmd_e2e(args):
+    from .pipeline.e2e import run_reference_scale
+
+    summary = run_reference_scale(
+        args.workspace, n_pairs=args.n_pairs, pr_iters=args.pr_iters,
+        pj_iters=args.pj_iters, out_json=args.out_json)
+    print(json.dumps(summary, indent=1, sort_keys=True, default=str))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m opencv_dlco_tpu_torch.cli", description=__doc__,
@@ -131,6 +197,73 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--datasets", required=True,
                     help="comma-separated dataset names")
     sp.set_defaults(fn=cmd_prstats)
+
+    sp = sub.add_parser("compunproj", help="unprojected diff vectors")
+    common(sp)
+    sp.add_argument("--dataset", required=True)
+    sp.add_argument("--pr", required=True, help="pr model ref file.h5#row")
+    sp.set_defaults(fn=cmd_compunproj)
+
+    sp = sub.add_parser("pjlearn", help="PJ RDA learner (one run)")
+    common(sp)
+    sp.add_argument("--unproj", required=True)
+    sp.add_argument("--mu", type=float, default=0.001)
+    sp.add_argument("--gamma", type=float, default=0.5)
+    sp.add_argument("--iters", type=int, default=50_000)
+    sp.add_argument("--log-step", type=int, default=100)
+    sp.add_argument("--batch", type=int, default=200)
+    sp.add_argument("--eigh-mode", default="exact",
+                    choices=["exact", "subspace", "psd_ns"])
+    sp.set_defaults(fn=cmd_pjlearn)
+
+    sp = sub.add_parser("pjsweep", help="PJ hyperparameter grid, one loop")
+    common(sp)
+    sp.add_argument("--unproj", required=True)
+    sp.add_argument("--iters", type=int, default=50_000)
+    sp.add_argument("--log-step", type=int, default=100)
+    sp.add_argument("--batch", type=int, default=200)
+    sp.add_argument("--eigh-mode", default="psd_ns",
+                    choices=["exact", "subspace", "psd_ns"],
+                    help="psd_ns (grid default) = Newton-Schulz PSD "
+                         "projection with an exact eigh at log "
+                         "boundaries; exact = reference semantics "
+                         "(per-step batched eigh)")
+    sp.set_defaults(fn=cmd_pjsweep)
+
+    sp = sub.add_parser("pjstats", help="PJ model ranking")
+    common(sp)
+    sp.add_argument("--max-dim", type=int, default=80)
+    sp.set_defaults(fn=cmd_pjstats)
+
+    sp = sub.add_parser("export", help="emit OpenCV VGG .i header")
+    common(sp)
+    sp.add_argument("--pr", required=True)
+    sp.add_argument("--pj", required=True)
+    sp.add_argument("--out", required=True)
+    sp.set_defaults(fn=cmd_export)
+
+    sp = sub.add_parser("workflow", help="full stages 2-11 with automatic "
+                                         "model selection")
+    common(sp)
+    sp.add_argument("--datasets", required=True)
+    sp.add_argument("--pr-iters", type=int, default=50_000_000)
+    sp.add_argument("--pr-log-step", type=int, default=1_000_000)
+    sp.add_argument("--pj-iters", type=int, default=50_000)
+    sp.add_argument("--pj-log-step", type=int, default=100)
+    sp.add_argument("--batch", type=int, default=4096)
+    sp.add_argument("--max-dim", type=int, default=640)
+    sp.set_defaults(fn=cmd_workflow)
+
+    sp = sub.add_parser("e2e", help="reference-scale end-to-end run: "
+                                    "3 synthetic Brown-shaped datasets at "
+                                    "500k x 5120, full PR/PJ grids at "
+                                    "reference budgets, export + summary")
+    common(sp)
+    sp.add_argument("--n-pairs", type=int, default=500_000)
+    sp.add_argument("--pr-iters", type=int, default=50_000_000)
+    sp.add_argument("--pj-iters", type=int, default=50_000)
+    sp.add_argument("--out-json", default=None)
+    sp.set_defaults(fn=cmd_e2e)
     return p
 
 

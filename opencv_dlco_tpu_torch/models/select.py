@@ -1,9 +1,10 @@
 """Model selection and statistics for learned PR models.
 
-Port of the PR half of ``opencv_dlco_tpu/models/select.py`` (reference:
-src/misc.cpp:78-169 SelectPRFilters, :171-264 ComputePRStats): filter
-selection and geometry are host numpy; the "apply model" products
-(w . Dists^T) and the ROC sweeps run on the tensors' device in f32.
+Port of ``opencv_dlco_tpu/models/select.py`` (reference:
+src/misc.cpp:78-169 SelectPRFilters, :171-264 ComputePRStats, :266-333
+ComputePJStats): filter selection and geometry are host numpy; the "apply
+model" products (w . Dists^T, colsum((W diffs^T)^2)) and the ROC sweeps run
+on the tensors' device in f32 (TF32 off).
 """
 
 from __future__ import annotations
@@ -133,4 +134,42 @@ def compute_pr_stats_rows(params, dists: torch.Tensor, labels: torch.Tensor,
         for j, r in enumerate(block):
             out[r]["fpr95"] = float(fpr95[j])
             out[r]["auc"] = float(auc[j])
+    return out
+
+
+def pj_model_distances(w_proj: torch.Tensor, diffs: torch.Tensor) -> torch.Tensor:
+    """PatchDist = colsum((W diffs^T)^2) (reference: src/misc.cpp:286-290).
+    Zero rows of W contribute nothing, so the full square W gives the
+    reference's nonzero-row distances."""
+    proj = torch.matmul(diffs, w_proj.T)
+    return (proj * proj).sum(dim=1)
+
+
+def _pj_stats_record(w_proj) -> dict:
+    w_np = np.asarray(w_proj)
+    return {"dim": int(np.sum(np.any(w_np != 0.0, axis=1)))}
+
+
+def compute_pj_stats_splits(splits, w_proj) -> dict:
+    """Full-dataset PJ stats from the resident splits (see
+    compute_pr_stats_splits): dict(dim, fpr95, auc)."""
+    out = _pj_stats_record(w_proj)
+    wt = _as_f32(w_proj, splits["pos_trn"])
+    ds = [pj_model_distances(wt, splits[k].to(torch.float32))
+          for k in ("pos_trn", "neg_trn", "pos_val", "neg_val")]
+    fpr95, auc = _split_roc(*ds)
+    out["fpr95"] = float(fpr95)
+    out["auc"] = float(auc)
+    return out
+
+
+def compute_pj_stats(diffs: torch.Tensor, labels: torch.Tensor,
+                     w_proj) -> dict:
+    """Full-dataset PJ model stats (reference: src/misc.cpp:266-333):
+    dict(dim, fpr95, auc); dim counts the nonzero rows of W."""
+    out = _pj_stats_record(w_proj)
+    pd = pj_model_distances(_as_f32(w_proj, diffs), diffs)
+    fpr95, auc = roc_stats(pd, labels)
+    out["fpr95"] = float(fpr95)
+    out["auc"] = float(auc)
     return out

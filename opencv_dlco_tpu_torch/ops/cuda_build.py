@@ -29,6 +29,8 @@ SOURCES = {
     "ring_dist": "ring_dist.cu",      # kernel A
     "rda_wide": "rda_wide.cu",        # kernel B
     "rda_narrow": "rda_narrow.cu",    # kernels C and D
+    "hinge": "hinge.cu",              # kernel E
+    "knn": "knn.cu",                  # kernels F and H (G later)
 }
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,6 +38,7 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: C entry point of each library: (symbol, argtypes)
 SIGNATURES = {
     "ring_dist": ("ring_dist_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -45,6 +48,9 @@ SIGNATURES = {
     "rda_narrow": ("rda_narrow_run",
                    [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _P]),
+    "hinge": ("hinge_launch", [_P, _P, _P, _I, _I, _P]),
+    "knn": ("knn_launch", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _L, _L, _L, _L, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -2,16 +2,26 @@
 
     L(pos, neg) = sum_i sum_j max(0, pos_i + 1 - neg_j)
 
-Port of ``opencv_dlco_tpu/ops/hinge.py::hinge_sum_sorted`` (the reference's
-kSubtractVectorsByRows, src/kernelop-opencv.cu:49-66, in exact O((P+N) log N)
-form): sort the negatives, then for each positive the inner sum is
-k(p) * (p + 1) - prefix[k(p)] with k(p) = #{ j : n_j < p + 1 }.
-Leading dimensions are batch dimensions (one loss per sweep entry).
+Port of ``opencv_dlco_tpu/ops/hinge.py`` (the reference's
+kSubtractVectorsByRows, src/kernelop-opencv.cu:49-66):
+
+- ``hinge_sum_sorted``: the exact O((P+N) log N) form. Sort the negatives;
+  for each positive the inner sum is k(p) * (p + 1) - prefix[k(p)] with
+  k(p) = #{ j : n_j < p + 1 }. Leading dimensions are batch dimensions (one
+  loss per sweep entry). The validation path of both learners.
+- ``hinge_sum_blockwise``: kernel E, the all-pairs form with per-positive
+  partial sums (``csrc/hinge.cu``), kept for summation-order parity. On a
+  CPU tensor it runs ``hinge_partials_plain``.
+- ``hinge_sum``: the dispatcher, sorted by default.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import cuda_build
+
+TILE_N = 2048  # negatives per partial sum of the plain version (the TPU tile)
 
 
 def hinge_sum_sorted(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
@@ -26,3 +36,52 @@ def hinge_sum_sorted(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
     k = torch.searchsorted(ns.contiguous(), thresh.contiguous(), right=False)
     loss = thresh * k.to(torch.float32) - torch.gather(prefix, -1, k)
     return loss.sum(dim=-1)
+
+
+def hinge_partials_plain(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel E: (P,) per-positive sums of
+    max(0, p + 1 - n) over the negatives, in TILE_N-wide negative tiles,
+    so no P x N matrix is held at once."""
+    th = pos.reshape(-1).to(torch.float32) + 1.0
+    neg = neg.reshape(-1).to(torch.float32)
+    out = torch.zeros_like(th)
+    for j in range(0, neg.shape[0], TILE_N):
+        out += torch.clamp(th[:, None] - neg[None, j:j + TILE_N],
+                           min=0.0).sum(dim=1)
+    return out
+
+
+def hinge_sum_blockwise(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """All-pairs hinge sum through kernel E: per-positive partial sums on
+    the device, then one sum over positives. Inputs are flattened; the
+    P x N matrix never exists. Returns a 0-d f32 tensor."""
+    pos = pos.reshape(-1).to(torch.float32).contiguous()
+    neg = neg.reshape(-1).to(torch.float32).contiguous()
+    if pos.device != neg.device:
+        raise ValueError("hinge_sum_blockwise: pos and neg must share a device")
+    if pos.device.type == "cpu":
+        return hinge_partials_plain(pos, neg).sum()
+    per_pos = torch.empty_like(pos)
+    lib = cuda_build.load("hinge")
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hinge_launch(pos.data_ptr(), neg.data_ptr(),
+                              per_pos.data_ptr(), pos.shape[0], neg.shape[0],
+                              stream)
+    cuda_build.check(rc, "hinge_sum_blockwise")
+    hinge_sum_blockwise.launches += 1
+    return per_pos.sum()
+
+
+#: kernel launches since the count was last set to 0
+hinge_sum_blockwise.launches = 0
+
+
+def hinge_sum(pos: torch.Tensor, neg: torch.Tensor, *,
+              method: str = "sorted") -> torch.Tensor:
+    """All-pairs hinge loss sum; ``method`` in {"sorted", "blockwise"}."""
+    if method == "sorted":
+        return hinge_sum_sorted(pos.reshape(-1), neg.reshape(-1))
+    if method == "blockwise":
+        return hinge_sum_blockwise(pos, neg)
+    raise ValueError(f"unknown hinge method: {method}")

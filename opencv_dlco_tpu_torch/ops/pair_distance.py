@@ -5,6 +5,8 @@ src/comp-fulldists.cpp:294-356, src/comp-uprjdists.cpp:298-349). A block of
 pairs pools through the filter bank as one wide float32 product (TF32 off),
 followed by truncation at 1, the squared difference and the two-stage ring
 reduction. The bf16 route is the fused kernel in ops/pair_distance_fused.py.
+``precision="default"`` rounds the operands of a product to bf16 (f32
+accumulation), the precision class of the TPU's DEFAULT matmul.
 """
 
 from __future__ import annotations
@@ -12,9 +14,12 @@ from __future__ import annotations
 import torch
 
 
-def pooled_descriptors(filters: torch.Tensor,
-                       patch_trans: torch.Tensor) -> torch.Tensor:
+def pooled_descriptors(filters: torch.Tensor, patch_trans: torch.Tensor,
+                       precision: str = "highest") -> torch.Tensor:
     """min(F @ PT, 1): (n_filters, n_pixels) x (B, n_pixels, n_bins) -> (B, n_filters, n_bins)."""
+    if precision != "highest":
+        filters = filters.to(torch.bfloat16).to(torch.float32)
+        patch_trans = patch_trans.to(torch.bfloat16).to(torch.float32)
     d = torch.matmul(filters, patch_trans)
     return torch.clamp(d, max=1.0)
 
@@ -33,9 +38,10 @@ def ring_distances(filters: torch.Tensor, pt1: torch.Tensor,
 
 
 def unprojected_diffs(sel_filters: torch.Tensor, pt1: torch.Tensor,
-                      pt2: torch.Tensor) -> torch.Tensor:
+                      pt2: torch.Tensor,
+                      precision: str = "highest") -> torch.Tensor:
     """(B, n_sel * n_bins) rows of (Desc1 - Desc2) flattened row-major
     (reference: src/comp-uprjdists.cpp:320-330)."""
-    diff = (pooled_descriptors(sel_filters, pt1)
-            - pooled_descriptors(sel_filters, pt2))
+    diff = (pooled_descriptors(sel_filters, pt1, precision)
+            - pooled_descriptors(sel_filters, pt2, precision))
     return diff.reshape(diff.shape[0], -1)

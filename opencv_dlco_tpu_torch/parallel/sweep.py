@@ -1,17 +1,19 @@
-"""PR hyperparameter sweep engine: the grid trains as one loop.
+"""Hyperparameter sweep engines: each grid trains as one loop.
 
-Port of ``opencv_dlco_tpu/parallel/sweep.py::run_pr_sweep`` on a single
-device. The reference's PR sweep is 768 sequential runs driven by bash
-(workspace/04-prlearn.sh); here the whole (mu, gamma) grid is the leading S
-axis of the batched solver (models/pr_rda.py), so every sweep entry shares
-each step's sampled block and the per-sample work is (B, F) x (F, S)
-products — through kernel B for the 16 x 16 grid.
+Port of ``opencv_dlco_tpu/parallel/sweep.py`` (``run_pr_sweep``,
+``run_pj_sweep``) on a single device. The reference's sweeps are sequential
+runs driven by bash (workspace/04-prlearn.sh, 08-pjlearn.sh); here the
+whole (mu, gamma) grid is the leading S axis of the batched solvers
+(models/pr_rda.py, models/pj_rda.py). PR entries share each step's sampled
+block, so the per-sample work is (B, F) x (F, S) products — through kernel B
+for the 16 x 16 grid; the 5 x 9 PJ grid's eigendecompositions and
+Newton-Schulz products run batched over S.
 
-Per-entry best iterates are tracked on the device and appended to the
-per-run artifact history exactly like single runs. The stacked solver
-state, the generator and the per-combo append positions checkpoint into a
-sidecar ``*-sweep-ckpt.h5`` every ``ckpt_every`` log periods, and an
-interrupted sweep resumes from it with identical final artifacts.
+Per-entry best iterates are tracked on the device and written to the
+per-run artifacts exactly like single runs. The stacked solver state, the
+generator and the per-combo positions checkpoint into a sidecar
+``*-sweep-ckpt.h5`` every ``ckpt_every`` log periods, and an interrupted
+sweep resumes from it with identical final artifacts.
 """
 
 from __future__ import annotations
@@ -24,14 +26,25 @@ import numpy as np
 import torch
 
 from ..data.store import ArtifactStore, remove_artifact, writer_store
+from ..models.pj_rda import (
+    PJState,
+    pj_init_batch,
+    pj_train_chunk_batch,
+    pj_validate,
+)
 from ..models.pr_rda import PRState, pr_init, pr_train_chunk, pr_validate
-from ..models.select import selected_pr_geometry
+from ..models.select import compute_pj_stats_splits, selected_pr_geometry
 from ..utils.checkpoint import (
     RunInterrupted,
     load_solver_state,
     save_solver_state,
 )
-from ..utils.configs import PRLearnConfig, PRSweepGrid
+from ..utils.configs import (
+    PJLearnConfig,
+    PJSweepGrid,
+    PRLearnConfig,
+    PRSweepGrid,
+)
 from ..utils.logs import MetricLogger
 from ..utils.memory import check_device_budget, nbytes
 from .distributed import is_primary
@@ -66,16 +79,17 @@ def _sweep_signature(combos, base, n_feat, extra=None):
     }
 
 
-def _completed_sweep_results(ws, runs, combos, n_iter: int, sidecar: str):
-    """Stage-level idempotence (04-prlearn.sh:17-22): when every combo
-    artifact carries the done marker for this budget and no resume sidecar
-    is pending, return per-combo summaries instead of retraining; any
-    mismatch -> None."""
+def _completed_sweep_results(ws, subdir: str, runs, combos, n_iter: int,
+                             sidecar: str):
+    """Stage-level idempotence (04-prlearn.sh:17-22, 08-pjlearn.sh:18-21):
+    when every combo artifact carries the done marker for this budget and
+    no resume sidecar is pending, return per-combo summaries instead of
+    retraining; any mismatch -> None."""
     if os.path.exists(sidecar):
         return None
     results = []
     for run, c in zip(runs, combos):
-        path = ws.path("pr-learn", f"{run}.h5")
+        path = ws.path(subdir, f"{run}.h5")
         if not os.path.exists(path):
             return None
         try:
@@ -83,8 +97,14 @@ def _completed_sweep_results(ws, runs, combos, n_iter: int, sidecar: str):
                 if st.get_meta("done_iters") != f"{n_iter}":
                     return None
                 rec = dict(mu=c[0], gamma=c[1], model=path, obj=np.inf, nnz=0)
+                best = st.get_meta("best") or {}
+                rec.update({k: best[k] for k in ("auc", "fpr95")
+                            if k in best})
                 if st.exists("w"):
                     rec["nnz"] = int(np.sum(st.read("w")[-1] > 0.0))
+                if st.exists("W"):
+                    w_np = st.read("W")
+                    rec["dim"] = int(np.sum(np.any(w_np != 0.0, axis=1)))
                 results.append(rec)
         except OSError:
             return None
@@ -111,8 +131,8 @@ def run_pr_sweep(ws, ds: str, grid: PRSweepGrid, base: PRLearnConfig,
     ckpt_path = ws.path("pr-learn", f"{ds}-sweep-ckpt.h5")
 
     done = _completed_sweep_results(
-        ws, [f"{ds}-{c[0]}-{c[1]}-pr" for c in combos], combos, base.n_iter,
-        sidecar=ckpt_path)
+        ws, "pr-learn", [f"{ds}-{c[0]}-{c[1]}-pr" for c in combos], combos,
+        base.n_iter, sidecar=ckpt_path)
     if done is not None:
         return done
 
@@ -235,4 +255,142 @@ def run_pr_sweep(ws, ds: str, grid: PRSweepGrid, base: PRLearnConfig,
     finally:
         for st in stores.values():
             st.close()
+        log.close()
+
+
+def run_pj_sweep(ws, unproj_path: str, grid: PJSweepGrid,
+                 base: PJLearnConfig, run_label: Optional[str] = None,
+                 _stop_after_logs: Optional[int] = None,
+                 ckpt_every: int = 1) -> List[dict]:
+    """Train the PJ grid on one unprojected diff set as one batched loop.
+
+    All S = |grid| solver states train together over the resident dataset,
+    each on its own sampled rows (models/pj_rda.pj_train_chunk_batch).
+    Objective-best iterates are tracked on the device; full-dataset
+    FPR95/AUC stats are evaluated once per entry at the end, and each entry
+    writes the pj-learn/{label}-{mu}-{gamma}-pj.h5 artifact
+    Workspace.pjlearn would. Returns per-combo summaries sorted by FPR95.
+    """
+    dev = ws.device
+    combos = grid.combos()
+    s = len(combos)
+    mus = torch.tensor([c[0] for c in combos], dtype=torch.float32, device=dev)
+    gammas = torch.tensor([c[1] for c in combos], dtype=torch.float32,
+                          device=dev)
+    if run_label is None:
+        run_label = os.path.basename(unproj_path).replace("-unproj.h5", "")
+    ckpt_path = ws.path("pj-learn", f"{run_label}-sweep-ckpt.h5")
+    done = _completed_sweep_results(
+        ws, "pj-learn", [f"{run_label}-{m}-{g}-pj" for m, g in combos],
+        combos, base.n_iter, sidecar=ckpt_path)
+    if done is not None:
+        done.sort(key=lambda r: r.get("fpr95", np.inf))
+        return done
+
+    data = ws._load_split(unproj_path, base.train_frac, base.seed)
+    n_feat = data["pos_trn"].shape[1]
+    rank_cap = base.rank_cap or n_feat
+    check_device_budget(
+        {**{k: nbytes(v) for k, v in data.items()},
+         "sweep_state": 4 * s * n_feat * n_feat * 4,
+         "best_iterates": 2 * s * n_feat * n_feat * 4},
+        f"pj_sweep[{run_label}]", device=dev)
+    splits = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    del data
+    pos_trn, neg_trn = splits["pos_trn"], splits["neg_trn"]
+    pos_val, neg_val = splits["pos_val"], splits["neg_val"]
+
+    n_logs = max(1, base.n_iter // base.log_step)
+    signature = _sweep_signature(combos, base, n_feat,
+                                 {"eigh_mode": base.eigh_mode,
+                                  "rank_cap": rank_cap})
+    primary = is_primary()
+    done_logs = 0
+    resume = None
+    if primary and os.path.exists(ckpt_path):
+        with ArtifactStore(ckpt_path, "r") as ck:
+            if ck.get_meta("signature") == signature:
+                resume = load_solver_state(ck, PJState, device=dev)
+                meta = ck.get_meta("solver_state_meta") or {}
+                done_logs = int(meta.get("completed_logs", 0))
+                best_obj = torch.from_numpy(ck.read("best_obj")).to(dev)
+                best_w = torch.from_numpy(ck.read("best_w")).to(dev)
+                best_a = torch.from_numpy(ck.read("best_a")).to(dev)
+        if resume is None:
+            remove_artifact(ckpt_path)
+
+    if resume is not None:
+        states, gen = resume
+    else:
+        states = pj_init_batch(n_feat, s, base.rank_cap, device=dev)
+        gen = torch.Generator().manual_seed(base.seed)
+        best_obj = torch.full((s,), float("inf"), dtype=torch.float32,
+                              device=dev)
+        best_w = torch.zeros((s, rank_cap, n_feat), dtype=torch.float32,
+                             device=dev)
+        best_a = torch.zeros((s, n_feat, n_feat), dtype=torch.float32,
+                             device=dev)
+
+    def save_ckpt(li):
+        with writer_store(ckpt_path, "a") as ck:
+            save_solver_state(ck, states, gen,
+                              extra={"completed_logs": li + 1},
+                              compression=0)
+            ck.write("best_obj", best_obj.cpu().numpy(), compression=0)
+            ck.write("best_w", best_w.cpu().numpy(), compression=0)
+            ck.write("best_a", best_a.cpu().numpy(), compression=0)
+            ck.set_meta("signature", signature)
+
+    log = MetricLogger(jsonl_path=ws.path("pj-learn", "logging",
+                                          f"{run_label}-sweep.jsonl")
+                       if primary else None)
+    t0 = time.perf_counter()
+    try:
+        for li in range(done_logs, n_logs):
+            states = pj_train_chunk_batch(
+                pos_trn, neg_trn, mus, gammas, states, gen, batch=base.batch,
+                n_steps=base.log_step, eigh_mode=base.eigh_mode,
+                subspace_steps=base.subspace_steps, ns_iters=base.ns_iters)
+            loss, regul, obj, rank = pj_validate(pos_val, neg_val, mus,
+                                                 states)
+            _check_finite(obj, f"pj_sweep[{run_label}]", states.t)
+            improved = obj < best_obj
+            best_obj = torch.where(improved, obj, best_obj)
+            best_w = torch.where(improved[:, None, None], states.w, best_w)
+            best_a = torch.where(improved[:, None, None], states.a, best_a)
+            med = float(np.median(obj.cpu().numpy()))
+            log.record(
+                "pj_sweep_step",
+                f"PJSweepStep: iter {states.t} x {s} combos  "
+                f"medObj: {med:.6f}  t: {time.perf_counter() - t0:.1f}s",
+                t=states.t, med_obj=med)
+            if (li + 1) % ckpt_every == 0 or li + 1 == n_logs:
+                save_ckpt(li)
+            if _stop_after_logs is not None and li + 1 >= _stop_after_logs:
+                if (li + 1) % ckpt_every != 0:
+                    save_ckpt(li)
+                raise SweepInterrupted(f"stopped after log {li + 1}")
+        results = []
+        best_w_np = best_w.cpu().numpy()
+        best_a_np = best_a.cpu().numpy()
+        for si, (mu, gamma) in enumerate(combos):
+            w_np = best_w_np[si]
+            stats = compute_pj_stats_splits(splits, w_np)
+            out = ws.path("pj-learn", f"{run_label}-{mu}-{gamma}-pj.h5")
+            with writer_store(out, "w") as st:
+                st.write("W", w_np[np.any(w_np != 0.0, axis=1)])
+                st.write("A", best_a_np[si])
+                st.set_meta("done_iters", f"{base.n_iter}")
+                st.set_meta("config", {"mu": mu, "gamma": gamma,
+                                       "sweep": True})
+                st.set_meta("best", {"auc": stats["auc"],
+                                     "fpr95": stats["fpr95"]})
+            results.append(dict(mu=mu, gamma=gamma, model=out,
+                                dim=stats["dim"], auc=stats["auc"],
+                                fpr95=stats["fpr95"]))
+        results.sort(key=lambda r: r.get("fpr95", np.inf))
+        if primary and os.path.exists(ckpt_path):
+            remove_artifact(ckpt_path)
+        return results
+    finally:
         log.close()

@@ -1,9 +1,9 @@
-"""Stages 1-6 of the DLCO workflow on one CUDA device.
+"""The 11-stage DLCO workflow on one CUDA device.
 
-Port of the PR half of ``opencv_dlco_tpu/pipeline/stages.py``: every stage
-is a method over a Workspace directory with the reference's artifact layout
-and resume contract (a stage is skipped iff its output artifact is
-complete), structured JSONL metrics, and device-batched compute.
+Port of ``opencv_dlco_tpu/pipeline/stages.py``: every stage is a method
+over a Workspace directory with the reference's artifact layout and resume
+contract (a stage is skipped iff its output artifact is complete),
+structured JSONL metrics, and device-batched compute.
 
 Workspace layout (mirrors reference workspace/, the same files the JAX
 package writes):
@@ -11,6 +11,9 @@ package writes):
     filters.h5                       Ring/PR params + filters (stage 2)
     distances/{ds}-dist.h5           Label + Distance         (stage 3)
     pr-learn/{run}.h5 + logging/     w histories + metrics    (stage 4)
+    distances/{ds}-{pr}-unproj.h5    signed diff vectors      (stage 7)
+    pj-learn/{run}.h5 + logging/     W, A + metrics           (stage 8)
+    opencv/*.i                       exported headers         (stage 11)
 """
 
 from __future__ import annotations
@@ -24,16 +27,39 @@ import numpy as np
 import torch
 
 from ..data.brown import convert_brown_patches, pair_labels
-from ..data.store import ArtifactStore, remove_artifact, writer_store
+from ..data.store import (
+    ArtifactStore,
+    parse_model_ref,
+    remove_artifact,
+    writer_store,
+)
+from ..models import pj_rda
 from ..models.pr_rda import PRState, pr_init, pr_train_chunk, pr_validate
-from ..models.select import compute_pr_stats_rows, compute_pr_stats_splits
-from ..ops.pair_distance import ring_distances
+from ..models.select import (
+    compute_pj_stats,
+    compute_pj_stats_splits,
+    compute_pr_stats_rows,
+    compute_pr_stats_splits,
+    select_pr_filters,
+)
+from ..ops.pair_distance import ring_distances, unprojected_diffs
 from ..ops.pair_distance_fused import TF, TK, ring_distances_fused
 from ..ops.patch_transform import batch_patch_transform
 from ..ops.pool_regions import build_filter_bank
 from ..parallel.distributed import is_primary
-from ..utils.checkpoint import is_lock_error, open_lock_retry
-from ..utils.configs import DescriptorConfig, PoolRegionConfig, PRLearnConfig
+from ..utils.checkpoint import (
+    RunInterrupted,
+    is_lock_error,
+    load_solver_state,
+    open_lock_retry,
+    save_solver_state,
+)
+from ..utils.configs import (
+    DescriptorConfig,
+    PJLearnConfig,
+    PoolRegionConfig,
+    PRLearnConfig,
+)
 from ..utils.logs import MetricLogger
 from ..utils.memory import check_device_budget, nbytes
 from ..utils.progress import TermProgress
@@ -243,9 +269,6 @@ class Workspace:
                 _stop_after_logs: Optional[int] = None) -> str:
         """One PR RDA run -> pr-learn/{ds}-{mu}-{gamma}-pr.h5 with the
         improving-w history (reference: 04-prlearn.sh, src/pr-learn.cpp)."""
-        from ..utils.checkpoint import (RunInterrupted, load_solver_state,
-                                        save_solver_state)
-
         dev = self._dev
         run = f"{ds}-{cfg.mu}-{cfg.gamma}-pr"
         out = self.path("pr-learn", f"{run}.h5")
@@ -407,3 +430,355 @@ class Workspace:
             ))
         ranked.sort(key=lambda r: r["mean_fpr95"])
         return ranked[:top_k]
+
+    # -- stage 7: unprojected difference vectors --------------------------
+
+    def compunproj(self, ds: str, pr_ref: str) -> str:
+        """Signed truncated-descriptor differences for the selected filters
+        (reference: 07-compunproj.sh, src/comp-uprjdists.cpp)."""
+        pr_path, row = parse_model_ref(pr_ref)
+        with ArtifactStore(pr_path, "r") as st:
+            hist = st.read("w")
+        row = row if row >= 0 else hist.shape[0] - 1
+        w = hist[row]
+        pr_label = os.path.basename(pr_path).replace(".h5", "")
+        out = self.path("distances", f"{ds}-{pr_label}#{row}-unproj.h5")
+        sel = select_pr_filters(self.load_filters(), w)
+        n_dim = sel.shape[0] * self.desc_cfg.n_angle_bins
+
+        with ArtifactStore(self.path("dataset", f"{ds}.h5"), "r") as st:
+            indices = st.read("Indices")
+            patches = st.read("Patches")
+        n_pairs = indices.shape[0]
+        if os.path.exists(out):
+            st = _open_if_sound(out)
+            if st is not None:
+                with st:
+                    if (st.exists("Distance")
+                            and st.shape("Distance") == (n_pairs, n_dim)
+                            and st.get_meta("complete", False)):
+                        return out
+
+        sel_t = torch.from_numpy(sel.astype(np.float32)).to(self._dev)
+        labels = pair_labels(indices)
+        bar = self._bar()
+        blk = self.pair_block
+        with ArtifactStore(out, "w") as st:
+            st.write("Label", labels.reshape(-1, 1))
+            st.create("Distance", (n_pairs, n_dim), np.float32,
+                      compression=self.dist_compression)
+            for s in range(0, n_pairs, blk):
+                e = min(s + blk, n_pairs)
+                pt1 = batch_patch_transform(
+                    torch.from_numpy(patches[indices[s:e, 0]]).to(self._dev),
+                    self.desc_cfg)
+                pt2 = batch_patch_transform(
+                    torch.from_numpy(patches[indices[s:e, 2]]).to(self._dev),
+                    self.desc_cfg)
+                d = unprojected_diffs(sel_t, pt1, pt2,
+                                      precision=self.desc_cfg.precision)
+                d = d.cpu().numpy()
+                if not np.all(np.isfinite(d)):
+                    raise FloatingPointError(
+                        f"unproj Distance NaN/Inf in rows [{s}, {e})"
+                    )  # reference: src/comp-uprjdists.cpp:341-345
+                st.write_rows("Distance", s, d)
+                if bar:
+                    bar.update(e / n_pairs)
+            if bar:
+                bar.done()
+            st.set_meta("pr_ref", f"{pr_path}#{row}")
+            st.set_meta("complete", True)
+        return out
+
+    # -- stage 8: PJ learning ---------------------------------------------
+
+    def pjlearn(self, unproj_path: str, cfg: PJLearnConfig,
+                run_label: Optional[str] = None,
+                _stop_after_logs: Optional[int] = None) -> str:
+        """One PJ RDA run -> pj-learn/{label}-{mu}-{gamma}-pj.h5 holding the
+        best W, A (reference: 08-pjlearn.sh, src/pj-learn.cpp)."""
+        if run_label is None:
+            run_label = os.path.basename(unproj_path).replace("-unproj.h5", "")
+        dev = self._dev
+        run = f"{run_label}-{cfg.mu}-{cfg.gamma}-pj"
+        out = self.path("pj-learn", f"{run}.h5")
+        log_path = self.path("pj-learn", "logging", f"{run}.jsonl")
+        marker = f"{cfg.n_iter}"
+        resume = None
+        resume_meta = {}
+        if is_primary() and os.path.exists(out):
+            st = _open_if_sound(out)
+            if st is not None:
+                with st:
+                    if st.get_meta("done_iters") == marker:
+                        return out
+                    # mid-run snapshot: resume instead of restarting (the
+                    # reference restarts a crashed pj-learn from zero,
+                    # 08-pjlearn.sh:18-21)
+                    resume = load_solver_state(st, pj_rda.PJState,
+                                               device=dev)
+                    resume_meta = st.get_meta("solver_state_meta") or {}
+            if resume is None:
+                remove_artifact(out)
+
+        data = self._load_split(unproj_path, cfg.train_frac, cfg.seed)
+        check_device_budget({k: nbytes(v) for k, v in data.items()},
+                            f"pjlearn[{run}]", device=dev)
+        splits = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+        del data
+        pos_trn, neg_trn = splits["pos_trn"], splits["neg_trn"]
+        pos_val, neg_val = splits["pos_val"], splits["neg_val"]
+
+        n_logs = max(1, cfg.n_iter // cfg.log_step)
+        done_logs = 0
+        obj_best, auc_best, fpr95_best = np.inf, 0.0, np.inf
+        w_save = a_save = None
+        if resume is not None:
+            state, gen = resume
+            done_logs = int(resume_meta.get("completed_logs", 0))
+            obj_best = float(resume_meta.get("obj_best", np.inf))
+            auc_best = float(resume_meta.get("auc_best", 0.0))
+            fpr95_best = float(resume_meta.get("fpr95_best", np.inf))
+        else:
+            state = pj_rda.pj_init(pos_trn.shape[1], cfg.rank_cap, device=dev)
+            gen = torch.Generator().manual_seed(cfg.seed)
+
+        with MetricLogger(jsonl_path=log_path if is_primary() else None) \
+                as log, writer_store(out, "a") as st:
+            if resume is not None and st.exists("best_W"):
+                w_save = st.read("best_W")
+                a_save = st.read("best_A")
+            t_train0 = time.perf_counter()
+            for li in range(done_logs, n_logs):
+                state = pj_rda.pj_train_chunk(
+                    pos_trn, neg_trn, cfg.mu, cfg.gamma, state, gen,
+                    batch=cfg.batch, n_steps=cfg.log_step,
+                    eigh_mode=cfg.eigh_mode,
+                    subspace_steps=cfg.subspace_steps, ns_iters=cfg.ns_iters)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                t_train = time.perf_counter() - t_train0
+                t_val0 = time.perf_counter()
+                loss, regul, obj, rank = pj_rda.pj_validate(
+                    pos_val, neg_val, cfg.mu, state)
+                obj0 = float(obj)
+                if not np.isfinite(obj0):
+                    # crash-fast on solver divergence (src/pj-learn.cpp:57)
+                    raise FloatingPointError(
+                        f"pjlearn[{run}]: non-finite objective {obj0} at "
+                        f"iter {state.t} (loss={float(loss)}, "
+                        f"regul={float(regul)})")
+                t_val = time.perf_counter() - t_val0
+                improved = obj0 < obj_best
+                if improved:
+                    obj_best = obj0
+                log.pj_step(best=improved, t=state.t, loss=float(loss),
+                            regul=float(regul), obj=obj0, obj_best=obj_best,
+                            rank=int(rank), rank_best=int(rank),
+                            ttime=t_train, vtime=t_val)
+                if improved:
+                    # full-dataset stats + dual best criterion
+                    # (reference: src/pj-learn.cpp:551-566)
+                    w_np = state.w.cpu().numpy()
+                    stats = compute_pj_stats_splits(splits, w_np)
+                    saved = (auc_best <= stats["auc"]
+                             and fpr95_best >= stats["fpr95"])
+                    if saved:
+                        auc_best = stats["auc"]
+                        fpr95_best = stats["fpr95"]
+                        w_save = w_np[np.any(w_np != 0.0, axis=1)]
+                        a_save = state.a.cpu().numpy()
+                        st.write("best_W", w_save)
+                        st.write("best_A", a_save)
+                    log.pj_stat(dim=stats["dim"], auc=stats["auc"],
+                                auc_best=auc_best, fpr95=stats["fpr95"],
+                                fpr95_best=fpr95_best, saved=saved)
+                save_solver_state(st, state, gen,
+                                  extra={"completed_logs": li + 1,
+                                         "obj_best": obj_best,
+                                         "auc_best": auc_best,
+                                         "fpr95_best": fpr95_best})
+                if _stop_after_logs is not None and li + 1 >= _stop_after_logs:
+                    raise RunInterrupted(f"stopped after log {li + 1}")
+                t_train0 = time.perf_counter()
+            if w_save is None:
+                w_np = state.w.cpu().numpy()
+                w_save = w_np[np.any(w_np != 0.0, axis=1)]
+                a_save = state.a.cpu().numpy()
+            st.write("W", w_save)
+            st.write("A", a_save)
+            st.set_meta("done_iters", marker)
+            st.set_meta("config", vars(cfg))
+            st.set_meta("best", {"auc": float(auc_best),
+                                 "fpr95": float(fpr95_best)})
+        return out
+
+    # -- stage 9/10: PJ model selection -----------------------------------
+
+    def pjstats(self, model_paths: Sequence[str],
+                unproj_paths: Dict[str, str],
+                jsonl_path: Optional[str] = None) -> List[dict]:
+        """Cross-evaluate every PJ model on every dataset's unprojected
+        diff matrix (the train-on-A/test-on-B pass 09-pjstats.sh only
+        approximates by scraping per-run train logs; mirrors prstats)."""
+        records = []
+        with MetricLogger(jsonl_path=jsonl_path) as log:
+            for ds, upath in unproj_paths.items():
+                with ArtifactStore(upath, "r") as st:
+                    labels = st.read("Label").reshape(-1)
+                    n_rows, n_feat = st.shape("Distance")
+                    check_device_budget({"Distance": n_rows * n_feat * 4},
+                                        f"pjstats[{ds}]", device=self._dev)
+                    diffs = torch.from_numpy(st.read("Distance")).to(self._dev)
+                labels_t = torch.from_numpy(labels).to(self._dev)
+                for mpath in model_paths:
+                    with ArtifactStore(mpath, "r") as st:
+                        w_proj = st.read("W")
+                    if w_proj.shape[1] != n_feat:
+                        continue  # different PR selection; not comparable
+                    stats = compute_pj_stats(diffs, labels_t, w_proj)
+                    records.append(dict(model=mpath, dataset=ds, **stats))
+                    log.model_stat(model=mpath, row=0, dataset=ds,
+                                   dim=stats["dim"], fpr95=stats["fpr95"],
+                                   auc=stats["auc"])
+        return records
+
+    @staticmethod
+    def pj_rank_cross(records: List[dict], max_dim: int,
+                      top_k: int = 10) -> List[dict]:
+        """Rank PJ models by mean FPR95 across datasets under a dim cap
+        (the programmatic replacement of 10-pj-top.sh)."""
+        datasets = sorted({r["dataset"] for r in records})
+        by_model: Dict[str, Dict[str, dict]] = {}
+        for r in records:
+            by_model.setdefault(r["model"], {})[r["dataset"]] = r
+        ranked = []
+        for model, per_ds in by_model.items():
+            if set(per_ds) != set(datasets):
+                continue
+            if any(p["dim"] > max_dim or p["dim"] == 0
+                   for p in per_ds.values()):
+                continue
+            fprs = [per_ds[d]["fpr95"] for d in datasets]
+            ranked.append(dict(
+                model=model, mean_fpr95=float(np.mean(fprs)),
+                per_dataset={d: per_ds[d]["fpr95"] for d in datasets},
+                dim=max(p["dim"] for p in per_ds.values())))
+        ranked.sort(key=lambda r: r["mean_fpr95"])
+        return ranked[:top_k]
+
+    @staticmethod
+    def pj_rank(model_paths: Sequence[str], max_dim: int,
+                top_k: int = 10) -> List[dict]:
+        """Rank PJ runs by saved best FPR95 under a dim cap
+        (reference: 09-pjstats.sh / 10-pj-top.sh log scraping)."""
+        rows = []
+        for p in model_paths:
+            with ArtifactStore(p, "r") as st:
+                best = st.get_meta("best", {})
+                dim = st.shape("W")[0] if st.exists("W") else 0
+            if dim and dim <= max_dim and best:
+                rows.append(dict(model=p, dim=dim, **best))
+        rows.sort(key=lambda r: r["fpr95"])
+        return rows[:top_k]
+
+    # -- stage 11: export --------------------------------------------------
+
+    def export(self, pr_ref: str, pj_path: str, out_name: str) -> str:
+        """Emit the OpenCV VGG header opencv/{out_name} (reference:
+        11-opencv-export.sh, src/export-opencv.cpp)."""
+        from .export import export_opencv
+
+        return export_opencv(self.genpr(), pr_ref, pj_path,
+                             self.path("opencv", out_name))
+
+    # -- the whole workflow in one call ------------------------------------
+
+    def run_full(self, datasets: Sequence[str],
+                 pr_cfg: Optional[PRLearnConfig] = None,
+                 pj_cfg: Optional[PJLearnConfig] = None,
+                 pr_grid=None, pj_grid=None,
+                 export_dims: Sequence[int] = (48, 64, 80, 120),
+                 pj_datasets: Optional[Sequence[str]] = None,
+                 pr_ckpt_every: int = 1,
+                 pj_ckpt_every: int = 1) -> dict:
+        """Stages 2-11 end-to-end with automatic model selection: PR sweep
+        per dataset -> cross-dataset ranking -> unprojected diffs for the
+        winner on every dataset -> PJ sweep on ``pj_datasets`` (default:
+        all) -> cross-dataset PJ ranking (pjstats + pj_rank_cross) ->
+        per-dim-cap export. Datasets must already be converted.
+
+        Returns the selection results with per-stage wall-clock in
+        ``stage_seconds``.
+        """
+        from ..parallel.sweep import run_pj_sweep, run_pr_sweep
+        from ..utils.configs import PJSweepGrid, PRSweepGrid
+
+        pr_cfg = pr_cfg or PRLearnConfig()
+        # grids default to psd_ns; single runs (pjlearn) keep "exact"
+        pj_cfg = pj_cfg or PJLearnConfig(eigh_mode="psd_ns")
+        pr_grid = pr_grid or PRSweepGrid()
+        pj_grid = pj_grid or PJSweepGrid()
+        pj_datasets = list(pj_datasets or datasets)
+
+        stage_seconds: Dict[str, float] = {}
+
+        def timed(name, fn, *args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            stage_seconds[name] = round(
+                stage_seconds.get(name, 0.0)
+                + time.perf_counter() - t0, 3)
+            return out
+
+        timed("02_genpr", self.genpr)
+        dist_paths = {ds: timed(f"03_compdist[{ds}]", self.compdist, ds)
+                      for ds in datasets}
+
+        models = []
+        for ds in datasets:
+            timed(f"04_prsweep[{ds}]", run_pr_sweep, self, ds,
+                  pr_grid, pr_cfg, ckpt_every=pr_ckpt_every)
+            models.extend(
+                sorted(set(
+                    os.path.join(self.root, "pr-learn", f)
+                    for f in os.listdir(os.path.join(self.root, "pr-learn"))
+                    if f.startswith(f"{ds}-") and f.endswith("-pr.h5"))))
+        records = timed("05_prstats", self.prstats, models, dist_paths,
+                        jsonl_path=self.path("pr-select.jsonl"))
+        ranked = self.pr_rank(records)
+        if not ranked:
+            raise RuntimeError("no PR model ranked on all datasets")
+        best_pr = ranked[0]
+        pr_ref = f"{best_pr['model']}#{best_pr['row']}"
+
+        unproj_paths = {ds: timed(f"07_compunproj[{ds}]",
+                                  self.compunproj, ds, pr_ref)
+                        for ds in datasets}
+        pj_models = []
+        for ds in pj_datasets:
+            pj_models.extend(
+                timed(f"08_pjsweep[{ds}]", run_pj_sweep, self,
+                      unproj_paths[ds], pj_grid, pj_cfg,
+                      ckpt_every=pj_ckpt_every))
+
+        pj_records = timed(
+            "09_pjstats", self.pjstats,
+            [m["model"] for m in pj_models], unproj_paths,
+            jsonl_path=self.path("pj-select.jsonl"))
+
+        exports = {}
+        pj_ranked = {}
+        for dim in export_dims:
+            ranked_dim = self.pj_rank_cross(pj_records, max_dim=dim)
+            if not ranked_dim:
+                continue
+            winner = ranked_dim[0]
+            pj_ranked[dim] = winner
+            exports[dim] = timed(
+                f"11_export[{dim}]", self.export,
+                pr_ref, winner["model"], f"vgg_generated_{dim}.i")
+        return dict(best_pr=best_pr, pr_ref=pr_ref, pj_models=pj_models,
+                    pj_records=pj_records, pj_ranked=pj_ranked,
+                    exports=exports, stage_seconds=stage_seconds)

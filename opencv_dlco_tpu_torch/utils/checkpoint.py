@@ -1,9 +1,10 @@
 """Mid-run solver-state checkpointing.
 
-The full solver state (iterate, dual average, sample counter) and the state
-of the run's ``torch.Generator`` snapshot into the run's artifact file every
-log period, so an interrupted run resumes from the last validation point
-and draws the same samples it would have drawn. The JAX package stores a
+The full solver state (a PRState or PJState: iterates, dual averages, the
+counter) and the state of the run's ``torch.Generator`` snapshot into the
+run's artifact file (or a sweep's sidecar) every log period, so an
+interrupted run resumes from the last validation point and draws the same
+samples it would have drawn. The JAX package stores a
 PRNG key in the same place (``solver_state/prng_key``); the port stores the
 generator's byte state as ``solver_state/rng_state``.
 """

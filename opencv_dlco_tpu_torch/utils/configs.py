@@ -1,15 +1,15 @@
 """Typed configuration for every pipeline stage.
 
-A copy of the PR half of ``opencv_dlco_tpu/utils/configs.py``: the same
-frozen dataclasses, fields and defaults, so a config means the same run in
-both packages. The ``precision`` properties return the precision's name
+A copy of ``opencv_dlco_tpu/utils/configs.py``: the same frozen
+dataclasses, fields and defaults, so a config means the same run in both
+packages. The ``precision`` properties return the precision's name
 ("highest" or "default") instead of a JAX enum.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +88,30 @@ class PRLearnConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PJLearnConfig:
+    """Projection learner: trace-norm hinge RDA + PSD projection (reference: src/pj-learn.cpp:88-96)."""
+
+    mu: float = 0.001
+    gamma: float = 0.500
+    n_iter: int = 50_000
+    log_step: int = 100
+    batch: int = 200
+    train_frac: float = 0.80
+    seed: int = 2215
+    # "exact"    -> full eigh every step (reference semantics);
+    # "subspace" -> warm-started orthogonal iteration (approximate);
+    # "psd_ns"   -> Newton-Schulz PSD projection in the hot loop (matmuls
+    #               only) with one exact eigh per log period rebuilding W
+    #               from df_avg (models/pj_rda.py).
+    eigh_mode: str = "exact"
+    subspace_steps: int = 4
+    ns_iters: int = 24
+    # With eigh_mode="subspace": track only the top-K eigenpairs (F x K
+    # basis, W becomes K x F). None -> full basis.
+    rank_cap: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class PRSweepGrid:
     """Reference PR grid: 16 mu x 16 gamma (workspace/04-prlearn.sh:8-14)."""
 
@@ -98,6 +122,19 @@ class PRSweepGrid:
     gammas: Tuple[float, ...] = (
         0.005, 0.010, 0.015, 0.020, 0.025, 0.030, 0.040, 0.050,
         0.075, 0.100, 0.125, 0.150, 0.175, 0.200, 0.225, 0.250,
+    )
+
+    def combos(self) -> Sequence[Tuple[float, float]]:
+        return [(m, g) for m in self.mus for g in self.gammas]
+
+
+@dataclasses.dataclass(frozen=True)
+class PJSweepGrid:
+    """Reference PJ grid: 5 mu x 9 gamma (workspace/08-pjlearn.sh:10-14)."""
+
+    mus: Tuple[float, ...] = (0.0001, 0.0005, 0.0010, 0.0020, 0.0030)
+    gammas: Tuple[float, ...] = (
+        0.025, 0.050, 0.100, 0.150, 0.200, 0.250, 0.500, 0.750, 1.000,
     )
 
     def combos(self) -> Sequence[Tuple[float, float]]:

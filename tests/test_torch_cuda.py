@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from opencv_dlco_tpu_torch.ops import fused_rda as fr
+from opencv_dlco_tpu_torch.ops import hinge, knn_fused
 from opencv_dlco_tpu_torch.ops.pair_distance_fused import (
     ring_distances_fused,
     ring_distances_plain,
@@ -106,3 +107,111 @@ def test_wrappers_raise_on_shapes_the_kernels_cannot_take(dev):
     pt = torch.zeros((2, 4096, 8), device=dev)
     with pytest.raises(NotImplementedError):
         ring_distances_fused(f, pt, pt, bf16=False)
+
+
+@pytest.mark.parametrize("n_pos,n_neg", [(50_000, 50_000), (700, 2500),
+                                         (3, 5)])
+def test_kernel_e_matches_plain(dev, n_pos, n_neg):
+    rng = np.random.default_rng(n_pos)
+    pos = torch.from_numpy(rng.normal(1.0, 0.6, n_pos).astype(np.float32))
+    neg = torch.from_numpy(rng.normal(2.0, 0.8, n_neg).astype(np.float32))
+    before = hinge.hinge_sum_blockwise.launches
+    got = float(hinge.hinge_sum_blockwise(pos.to(dev), neg.to(dev)))
+    assert hinge.hinge_sum_blockwise.launches == before + 1
+    ref = float(hinge.hinge_partials_plain(pos.to(dev), neg.to(dev)).sum())
+    srt = float(hinge.hinge_sum_sorted(pos.to(dev), neg.to(dev)))
+    # f32 sums of up to 2.5e9 terms in other orders
+    assert got == pytest.approx(ref, rel=1e-5)
+    assert got == pytest.approx(srt, rel=1e-5)
+
+
+def _clustered(dev, n, m, d, seed, scale=1.0):
+    """Realistic-margin descriptors (tests/test_knn_pallas.py)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centres = torch.randn((m, d), generator=g, device=dev)
+    q = centres[:n] + 0.05 * torch.randn((n, d), generator=g, device=dev)
+    t = centres[torch.randperm(m, generator=g, device=dev)]
+    return q * scale, t * scale
+
+
+@pytest.mark.parametrize("k", [2, 3, 10, 16])
+@pytest.mark.parametrize("d", [64, 120])
+def test_kernels_f_and_h_match_plain_f32(dev, k, d):
+    # unit-scale descriptors: f32 rounding of |q|^2 + |t|^2 stays far
+    # below the 1e-5 tolerance
+    q, t = _clustered(dev, 3000, 5000, d, seed=k, scale=d ** -0.5)
+    fn = (lambda a, b: knn_fused.knn2_fused(a, b, bf16=False)) if k == 2 \
+        else (lambda a, b: knn_fused.knnk_fused(a, b, k, bf16=False))
+    dk, ik = fn(q, t)
+    dp, ip = knn_fused.knn_plain(q, t, k, bf16=False)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(ik.cpu().numpy(), ip.cpu().numpy())
+    np.testing.assert_allclose(dk.cpu().numpy(), dp.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [2, 10])
+@pytest.mark.parametrize("d", [64, 120, 600])
+def test_kernels_f_and_h_bf16_match_identity(dev, k, d):
+    """bf16 mode against the bf16 plain version: d 120 takes the padding
+    to a multiple of 16, d 600 (608 padded) three D chunks."""
+    from opencv_dlco_tpu_torch.ops.knn import ratio_test
+
+    q, t = _clustered(dev, 4096, 8192, d, seed=3)
+    fn = (lambda a, b: knn_fused.knn2_fused(a, b)) if k == 2 \
+        else (lambda a, b: knn_fused.knnk_fused(a, b, k))
+    dk, ik = fn(q, t)
+    dp, ip = knn_fused.knn_plain(q, t, k, bf16=True)
+    torch.cuda.synchronize()
+    # tensor-core f32 accumulation vs cuBLAS in another order: match
+    # identity on every one of the k columns, not only the first
+    same = ik == ip
+    assert same.float().mean(dim=0).min() >= 0.99
+    mk, _ = ratio_test(dk, ik)
+    mp, _ = ratio_test(dp, ip)
+    assert (mk == mp).float().mean() >= 0.99
+    # agreeing entries: the two orders differ by the f32 rounding of the
+    # expanded form, whose magnitude is |q|^2 + |t|^2
+    qb, tb = q.bfloat16().float(), t.bfloat16().float()
+    mag = (qb * qb).sum(1)[:, None] + (tb * tb).sum(1)[ip.long()]
+    err = (dk - dp).abs()[same]
+    assert bool((err <= 1e-3 * dp.abs()[same] + 1e-5 * mag[same]).all())
+
+
+@pytest.mark.parametrize("k", [2, 10])
+@pytest.mark.parametrize("d", [200, 576])
+def test_kernels_f_and_h_wide_f32_launch_and_match(dev, k, d):
+    """Widths past one D chunk (128 f32) run on the kernel, through the
+    dispatcher too, and match the plain version exactly in index."""
+    from opencv_dlco_tpu_torch.ops.knn import knn_match
+
+    q, t = _clustered(dev, 1000, 3000, d, seed=d + k, scale=d ** -0.5)
+    before = (knn_fused.knn2_fused.launches, knn_fused.knnk_fused.launches)
+    dk, ik = knn_match(q, t, k=k, precision="highest")
+    after = (knn_fused.knn2_fused.launches, knn_fused.knnk_fused.launches)
+    assert after[0 if k <= 2 else 1] == before[0 if k <= 2 else 1] + 1
+    dp, ip = knn_fused.knn_plain(q, t, k, bf16=False)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(ik.cpu().numpy(), ip.cpu().numpy())
+    np.testing.assert_allclose(dk.cpu().numpy(), dp.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_kernels_f_and_h_edges(dev):
+    """Ragged shapes, fewer train rows than k, and ties."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((77, 32), generator=g, device=dev)
+    t = torch.randn((130, 32), generator=g, device=dev)
+    for k in (2, 5):
+        fn = knn_fused.knn2_fused if k == 2 else \
+            (lambda a, b, **kw: knn_fused.knnk_fused(a, b, k, **kw))
+        dk, ik = fn(q, t, bf16=False)
+        _, ip = knn_fused.knn_plain(q, t, k, bf16=False)
+        np.testing.assert_array_equal(ik.cpu().numpy(), ip.cpu().numpy())
+    dk, ik = knn_fused.knnk_fused(q, t[:5], 8, bf16=False)
+    assert torch.all(ik[:, 5:] == -1) and torch.all(torch.isinf(dk[:, 5:]))
+    base = torch.randn((6, 16), generator=g, device=dev)
+    dup = torch.cat([base, base, base])
+    _, ik = knn_fused.knnk_fused(base, dup, 3, bf16=False)
+    assert torch.equal(ik.cpu(), torch.arange(6)[:, None]
+                       + torch.tensor([0, 6, 12]))

@@ -11,6 +11,12 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "opencv_dlco_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "opencv_dlco_tpu")
+#: modules of stages 7-11 and the evaluation; the walk below must find them
+SLICE_2 = ("ops/hinge.py", "ops/knn.py", "ops/knn_fused.py",
+           "models/pj_rda.py", "models/select.py", "models/vgg.py",
+           "parallel/sweep.py", "pipeline/stages.py", "pipeline/export.py",
+           "pipeline/e2e.py", "pipeline/eval.py", "data/hpatches.py",
+           "utils/checkpoint.py", "utils/configs.py", "cli.py")
 
 
 def _port_files():
@@ -33,6 +39,12 @@ def _imported(path):
               in ("import_module", "__import__")
               and node.args and isinstance(node.args[0], ast.Constant)):
             yield node.args[0].value
+
+
+def test_walk_covers_every_slice_module():
+    found = {os.path.relpath(p, PKG) for p in _port_files()}
+    missing = [m for m in SLICE_2 if m not in found]
+    assert not missing, missing
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from opencv_dlco_tpu.models import pr_rda as jax_pr
 from opencv_dlco_tpu.ops import fused_rda as jax_fused
 
+import opencv_dlco_tpu_torch.models.pj_rda as port_pj
 import opencv_dlco_tpu_torch.models.pr_rda as port_pr
 from opencv_dlco_tpu_torch.ops.fused_rda import (
     draw_block_offsets,
@@ -45,10 +46,26 @@ def jax_offsets(key, n_steps, n_pos, n_neg, batch, tile_b):
         np.array(jax.vmap(draw)(jax.random.split(key, n_steps))))
 
 
+def jax_rows(key, n_steps, n_pos, n_neg, batch):
+    """The (n_steps, batch) row draws per side of one chunk from ``key``:
+    one key per step, split into the positive and negative draws (the
+    gather scan of models/pr_rda.py and _pj_step, pj_rda.py:158-162)."""
+    def draw(k):
+        kp, kn = jax.random.split(k)
+        return (jax.random.randint(kp, (batch,), 0, n_pos),
+                jax.random.randint(kn, (batch,), 0, n_neg))
+
+    ip, ineg = jax.vmap(draw)(jax.random.split(key, n_steps))
+    return (torch.from_numpy(np.array(ip)).long(),
+            torch.from_numpy(np.array(ineg)).long())
+
+
 class JaxDraws:
     """Drop-in for the port's draw functions that follows the JAX key
-    schedule of run_pr_sweep / prlearn / pr_train: one key split per chunk
-    (sweep.py:244), then the per-step draws of that chunk."""
+    schedule of run_pr_sweep / prlearn / pr_train / pjlearn / pj_train: one
+    key split per chunk (sweep.py:244, stages.py:626), then the per-step
+    draws of that chunk; run_pj_sweep splits the chunk key once more into
+    one key per combo (sweep.py:442-443)."""
 
     def __init__(self, seed):
         self.key = jax.random.PRNGKey(seed)
@@ -61,16 +78,19 @@ class JaxDraws:
         return jax_offsets(self._sub(), n_steps, n_pos, n_neg, batch, tile_b)
 
     def gather_rows(self, gen, n_steps, n_pos, n_neg, batch):
-        ips, ins = [], []
-        for k in jax.random.split(self._sub(), n_steps):
-            kp, kn = jax.random.split(k)
-            ips.append(np.array(jax.random.randint(kp, (batch,), 0, n_pos)))
-            ins.append(np.array(jax.random.randint(kn, (batch,), 0, n_neg)))
-        return torch.from_numpy(np.stack(ips)), torch.from_numpy(np.stack(ins))
+        return jax_rows(self._sub(), n_steps, n_pos, n_neg, batch)
+
+    def sweep_rows(self, gen, n_sweep, n_steps, n_pos, n_neg, batch):
+        rows = [jax_rows(k, n_steps, n_pos, n_neg, batch)
+                for k in jax.random.split(self._sub(), n_sweep)]
+        return (torch.stack([r[0] for r in rows]),
+                torch.stack([r[1] for r in rows]))
 
     def install(self, monkeypatch):
         monkeypatch.setattr(port_pr, "draw_block_offsets", self.block_offsets)
         monkeypatch.setattr(port_pr, "draw_gather_rows", self.gather_rows)
+        monkeypatch.setattr(port_pj, "draw_gather_rows", self.gather_rows)
+        monkeypatch.setattr(port_pj, "draw_sweep_rows", self.sweep_rows)
 
 
 def _splits(seed, n=1024, f=384, dtype=np.float32):
