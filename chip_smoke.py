@@ -23,18 +23,31 @@ Run from the root of a checkout:  python3 chip_smoke.py
    descriptor on all 16,384 patches: verification, matching mAP (k = 10),
    the 2-NN ratio test and mutual nearest neighbours. Counts are set to 0
    just before and read just after; the run fails if F or H did not launch.
-4. Checks the outputs: distance matrix shape, finiteness and separation,
+4. Drives SLAM at the repo's SLAM bench row: render_blob_sequence (seed
+   2215, 48 frames, 256 px), SlamConfig(n_keypoints=256,
+   kf_min_translation=2.5, kf_min_rotation=0.05, loop_gap=10) and the
+   64-D header stage 11 just exported, through compute_features ->
+   run_odometry -> run_back_end (bench_slam's calls), once counted (after
+   a timed first forward-mode Jacobian, PyTorch's one-time set-up), once
+   more for steady-state seconds and once under torch.profiler for the
+   device's busy time and kernel launches. Counts are set to 0 just
+   before and read just after; the run fails if kernel G did not launch
+   there, if any pose is non-finite, or if a repeat of the first pose
+   chunk's G call on its own recorded inputs (masked rows included)
+   disagrees with G's plain version.
+5. Checks the outputs: distance matrix shape, finiteness and separation,
    the first 64 rows against the f32 route, a finite sweep, saved
    histories, a ranked row; finite diffs and PJ models, four exports that
    parse, finite descriptors, fused matching against the scan path, and
    each kNN kernel call of the evaluation against the plain version.
-5. Holds each kernel against its plain PyTorch version on the card at the
+6. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (E, F, H at the benchmark's shapes, F and H also at
-   the 120-D export's width and at widths past one D chunk) and times
+   the 120-D export's width and at widths past one D chunk, G on the SLAM
+   pose chunk's recorded inputs) and times
    kernel, plain version, one library call computing the same products or
    function where there is one (``library_ms``, a yardstick the port never
    calls), and the bound (bytes or operations over the card's peaks).
-6. Prints one JSON line with every kernel, then the card line, then
+7. Prints one JSON line with every kernel, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line. Any failed phase
    exits non-zero without that line.
 """
@@ -692,6 +705,213 @@ def kernel_checks_2(torch):
     return results
 
 
+SLAM_FRAMES = 48                   # the SLAM bench row (bench_slam)
+SLAM_SIZE = 256
+
+
+def run_slam_path(torch, np, header_path, record):
+    """SLAM at the bench row through the entry points bench_slam calls;
+    ``record`` wraps kernel G's call site in the pose chunk. Returns facts
+    and the per-stage seconds."""
+    from opencv_dlco_tpu_torch.data.synthetic import render_blob_sequence
+    from opencv_dlco_tpu_torch.models.vgg import VGGDescriptor
+    from opencv_dlco_tpu_torch.pipeline import slam
+    from opencv_dlco_tpu_torch.pipeline.slam import (
+        SlamConfig, ate_rmse, compute_features, run_back_end, run_odometry)
+
+    with open(header_path) as fh:
+        model = VGGDescriptor.from_header(fh.read(), device="cuda")
+    frames, centers_gt, intr = render_blob_sequence(
+        np.random.default_rng(2215), SLAM_FRAMES, size=SLAM_SIZE)
+    cfg = SlamConfig(n_keypoints=256, kf_min_translation=2.5,
+                     kf_min_rotation=0.05, loop_gap=10)
+    secs = {}
+    timed = timer(torch, secs)
+    inner = slam.knn2_fused_batched
+    slam.knn2_fused_batched = record(inner)
+    try:
+        feats = timed("slam_features", compute_features, frames, model, cfg)
+        odo = timed("slam_odometry", run_odometry, frames, intr, model, cfg,
+                    feats=feats)
+        stats = {}
+        refined = timed("slam_back_end", run_back_end, odo, feats, intr,
+                        cfg, loop_stats=stats)
+    finally:
+        slam.knn2_fused_batched = inner
+    span = float(np.linalg.norm(centers_gt.max(0) - centers_gt.min(0)))
+    for name, res in (("odometry", odo), ("refined", refined)):
+        if not (np.isfinite(res.rotations).all()
+                and np.isfinite(res.translations).all()):
+            raise AssertionError(f"SLAM {name}: non-finite pose")
+        if res.translations.shape != (SLAM_FRAMES, 3):
+            raise AssertionError(f"SLAM {name}: trajectory shape "
+                                 f"{res.translations.shape}")
+    front = secs["slam_features"] + secs["slam_odometry"]
+    full = front + secs["slam_back_end"]
+    return dict(
+        n_frames=SLAM_FRAMES, size=SLAM_SIZE, n_keypoints=cfg.n_keypoints,
+        front_end_fps=SLAM_FRAMES / front, full_stack_fps=SLAM_FRAMES / full,
+        n_keyframes=int(refined.keyframes.shape[0]),
+        n_loop_closures=len(refined.loop_edges),
+        loop_edges=[(int(e[0]), int(e[1])) for e in refined.loop_edges],
+        loop_stats=stats,
+        backbone_stride=(int(np.median(np.diff(odo.nodes)))
+                         if odo.nodes is not None else 1),
+        ate_over_span_odometry=ate_rmse(odo.translations, centers_gt) / span,
+        ate_over_span=ate_rmse(refined.translations, centers_gt) / span,
+        valid_keypoints_mean=float(np.mean([f[2].sum() for f in feats])),
+        matches_mean=float(np.mean([p.n_matches for p in odo.pairs])),
+        inliers_mean=float(np.mean([p.n_inliers for p in odo.pairs]))), \
+        secs, (frames, intr, model, cfg)
+
+
+def first_forward_ad_seconds(torch):
+    """Seconds of the process's first forward-mode Jacobian (the pose
+    chunk's BA, MVBA and the pose graphs take theirs by torch.func.jvp),
+    on a tiny input: PyTorch's one-time forward-AD set-up."""
+    from opencv_dlco_tpu_torch.geometry.jacobian import jac_fwd
+    from opencv_dlco_tpu_torch.geometry.se3 import se3_exp, se3_log
+
+    x = torch.zeros((4, 6), device="cuda")
+    t0 = time.perf_counter()
+    jac_fwd(lambda v: se3_log(*se3_exp(v)), x)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def rerun_slam_path(torch, inputs):
+    """bench_slam's steady-state figure: the same calls once more, timed;
+    then once more under torch.profiler for the device's busy time and the
+    kernel launches (idle share = 1 - busy / the timed run's wall)."""
+    from torch.autograd import DeviceType
+    from opencv_dlco_tpu_torch.pipeline.slam import (
+        compute_features, run_back_end, run_odometry)
+
+    frames, intr, model, cfg = inputs
+
+    def run(timed):
+        feats = timed("slam_features", compute_features, frames, model, cfg)
+        odo = timed("slam_odometry", run_odometry, frames, intr, model, cfg,
+                    feats=feats)
+        timed("slam_back_end", run_back_end, odo, feats, intr, cfg)
+
+    secs = {}
+    run(timer(torch, secs))
+    front = secs["slam_features"] + secs["slam_odometry"]
+    wall = front + secs["slam_back_end"]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(timer(torch, {}))
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                "cuLaunchKernel", "cuLaunchKernelEx"))
+    return dict(secs, front_end_fps=SLAM_FRAMES / front,
+                full_stack_fps=SLAM_FRAMES / wall,
+                device_busy_ms=busy_ms if kernels else "not measured",
+                device_idle_share=(1.0 - busy_ms / 1e3 / wall if kernels
+                                   else "not measured"),
+                kernel_launches=launches,
+                top_kernels=[(e.key[:60], e.self_device_time_total / 1e3,
+                              e.count) for e in kernels[:5]])
+
+
+def hold_g(torch, name, q, t, got):
+    """Kernel G's (dists, idx) for the batch q, t against knn_plain on the
+    same inputs, f32: indices identical except at near-ties, where the
+    kernel's pick has the plain list's distance within the tolerance;
+    distances within 1e-5 relative plus 8 f32 epsilons of |q|^2 + |t|^2
+    (the magnitude the expanded form cancels; 1e6-masked rows make it
+    ~6e13). Returns (max abs err, max rel err, the tolerance met)."""
+    from opencv_dlco_tpu_torch.ops.knn_fused import knn_plain
+
+    dk, ik = got
+    dp, ip = knn_plain(q, t, 2, bf16=False)
+    torch.cuda.synchronize()
+    q64, t64 = q.double(), t.double()
+    nq, nt = (q64 * q64).sum(-1), (t64 * t64).sum(-1)
+
+    def tol_at(idx, ref):
+        mag = nq[..., None] + torch.gather(
+            nt[:, None, :].expand(-1, q.shape[1], -1), 2,
+            idx.long().clamp(min=0))
+        return 1e-5 * ref.double().abs() + 8 * 1.1920929e-07 * mag
+
+    err = (dk.double() - dp.double()).abs()
+    if bool((err > tol_at(ip, dp)).any()):
+        raise AssertionError(f"{name}: {int((err > tol_at(ip, dp)).sum())} "
+                             f"distances outside tolerance, max abs err "
+                             f"{float(err.max())}")
+    diff = ik != ip
+    if bool(diff.any()):
+        b, r, s = diff.nonzero(as_tuple=True)
+        pick = ik[b, r, s].long()
+        d_pick = torch.clamp(nq[b, r] + nt[b, pick]
+                             - 2.0 * (q64[b, r] * t64[b, pick]).sum(-1),
+                             min=0.0)
+        ref = dp[b, r, s].double()
+        tol = 1e-5 * ref.abs() + 8 * 1.1920929e-07 * (nq[b, r] + nt[b, pick])
+        if not bool(((d_pick - ref).abs() <= tol).all()):
+            raise AssertionError(f"{name}: {int(diff.sum())} indices differ "
+                                 f"beyond near-ties")
+    rel = float((err / dp.double().abs().clamp(min=1e-30)).max())
+    return float(err.max()), rel, (
+        f"indices identical except {int(diff.sum())} near-tie swaps of "
+        f"{ik.numel()}; distances 1e-5 rel + 8 eps (|q|^2+|t|^2)")
+
+
+def g_row(torch, name, q, t, what):
+    """One kernel-vs-plain check of G with its times, bound and the
+    batched torch.bmm of q.t^T (TF32 off)."""
+    from opencv_dlco_tpu_torch.ops.knn_fused import (
+        knn2_fused_batched, knn_plain)
+
+    c, n, d = q.shape
+    m = t.shape[1]
+    err, rel, tol = hold_g(torch, name, q, t, knn2_fused_batched(q, t))
+    bnd, by = bound_ms((c * n * d + c * m * d) * 4 + c * n * 2 * 8,
+                       2 * c * n * m * d, "f32", f32_instr=4 * c * n * m)
+    tt = t.transpose(1, 2).contiguous()
+    return dict(
+        name="knn2_fused_batched", route="cuda",
+        source="opencv_dlco_tpu_torch/csrc/knn.cu",
+        replaces="opencv_dlco_tpu/ops/knn_pallas.py:69",
+        max_abs_err=err, max_rel_err=rel,
+        ms=time_ms(torch, lambda: knn2_fused_batched(q, t), 20),
+        plain_ms=time_ms(torch, lambda: knn_plain(q, t, 2, bf16=False), 5),
+        bound_ms=bnd, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.bmm(q, tt), 20),
+        shape=f"{c} x {n} x {m}, d {d}, k 2, f32 ({what})", tolerance=tol)
+
+
+def kernel_checks_3(torch, chunk):
+    """G on the SLAM pose chunk's recorded inputs (the first chunk of the
+    counted run, at the exported descriptor's width), and at the bench
+    row's nominal 64-D width on descriptors of the same magnitude with the
+    same masks (~20% of rows at +-1e6)."""
+    q, t = chunk
+    rows = {"G": g_row(torch, "G[SLAM chunk]", q, t, "the SLAM pose chunk")}
+    c, n, _ = q.shape
+    g = torch.Generator(device="cuda").manual_seed(64)
+    real = q[q.abs().amax(-1) < 1e5]
+    scale = float(real.norm(dim=-1).mean()) * 64 ** -0.5 if real.numel() \
+        else 1.0
+    q64 = scale * torch.randn((c, n, 64), generator=g, device="cuda")
+    t64 = q64[:, torch.randperm(n, generator=g, device="cuda")] + \
+        0.05 * scale * torch.randn((c, n, 64), generator=g, device="cuda")
+    vq = torch.rand((c, n), generator=g, device="cuda") < 0.8
+    vt = torch.rand((c, n), generator=g, device="cuda") < 0.8
+    q64 = torch.where(vq[..., None], q64, torch.full_like(q64, 1e6))
+    t64 = torch.where(vt[..., None], t64, torch.full_like(t64, -1e6))
+    rows["G64"] = g_row(torch, "G[d 64]", q64, t64,
+                        "the bench row's 64-D width, synthetic descriptors")
+    return rows
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -748,6 +968,7 @@ def main() -> int:
                     "D": fused_rda.fused_block_grad,
                     "E": hinge.hinge_sum_blockwise,
                     "F": knn_fused.knn2_fused,
+                    "G": knn_fused.knn2_fused_batched,
                     "H": knn_fused.knnk_fused}
 
         def counted(fn, *a):
@@ -800,19 +1021,48 @@ def main() -> int:
                                  f"stages 7-11 and the evaluation")
         facts2 = check_slice2(torch, np, out2)
         print("stages 7-11:", json.dumps(facts2), flush=True)
+        header_64 = out2["exports"][64]["path"]
         del out2
+
+        # -- SLAM at the bench row -----------------------------------------
+        chunks = []
+
+        def record(fn):
+            """The pose chunk's G call site: keeps the first call's inputs
+            and calls through."""
+            def g(query, train, **kw):
+                if not chunks:
+                    chunks.append((query.clone(), train.clone()))
+                return fn(query, train, **kw)
+            return g
+
+        print(f"forward-AD first use: {first_forward_ad_seconds(torch):.3f}s",
+              flush=True)
+        (facts3, secs3, slam_inputs), launches3 = counted(
+            run_slam_path, torch, np, header_64, record)
+        print("SLAM stage seconds:", json.dumps(secs3), flush=True)
+        print("SLAM launches:", json.dumps(launches3), flush=True)
+        if launches3["G"] == 0:
+            raise AssertionError("kernel G never launched on the SLAM path")
+        print("SLAM:", json.dumps(facts3), flush=True)
+        steady = rerun_slam_path(torch, slam_inputs)
+        print("SLAM steady state:", json.dumps(steady), flush=True)
+        del slam_inputs
 
         res = kernel_checks(torch, ws, out["dist"])
         res.update(kernel_checks_2(torch))
+        res.update(kernel_checks_3(torch, chunks[0]))
         for key, r in res.items():
             print(f"kernel {key}: " + json.dumps(r), flush=True)
         table = []
         for key, row in (("A", "A"), ("B", f"B{STEPS_PER_LOG}"), ("C", "C1"),
-                         ("D", "D"), ("E", "E"), ("F", "F64"),
+                         ("D", "D"), ("E", "E"), ("F", "F64"), ("G", "G"),
                          ("H", "H64")):
             r = {k: v for k, v in res[row].items()
-                 if k not in ("shape", "tolerance", "sorted_ms")}
-            table.append({**r, "launches": launches[key] + launches2[key]})
+                 if k not in ("shape", "tolerance", "sorted_ms",
+                              "max_rel_err")}
+            table.append({**r, "launches": launches[key] + launches2[key]
+                          + launches3[key]})
         print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
         shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"kernels": table}))

@@ -8,18 +8,22 @@ against each other on the same numpy inputs.
 Layout mirrors the JAX package:
 
 - ``ops``      — patch transform, pooling-region bank, ring distances,
-                 hinge, ROC stats, k-NN matching, and the wrappers of the
-                 hand-written CUDA kernels (``pair_distance_fused``,
-                 ``fused_rda``, ``hinge``, ``knn_fused``);
+                 hinge, ROC stats, k-NN matching, corner detection, and the
+                 wrappers of the hand-written CUDA kernels
+                 (``pair_distance_fused``, ``fused_rda``, ``hinge``,
+                 ``knn_fused``);
+- ``geometry`` — SE(3)/Sim(3), triangulation, RANSAC essential, two-view
+                 and multi-view BA, SE(3)/Sim(3) pose graphs;
 - ``csrc``     — the CUDA C++ sources of those kernels (``sm_90a``), built
                  with ``nvcc`` at first use (``ops/cuda_build.py``);
 - ``models``   — the PR and PJ RDA solvers, model selection and the
                  deployable VGG descriptor;
 - ``parallel`` — the single-device PR and PJ sweep engines;
-- ``data``     — HDF5 artifact store (same schema), Brown and HPatches
-                 ingestion, synthetic data;
+- ``data``     — HDF5 artifact store (same schema), Brown, HPatches and
+                 KITTI ingestion, synthetic data;
 - ``pipeline`` — stages 1-11 of the workflow over a Workspace directory,
-                 the .i export and the descriptor evaluation protocols;
+                 the .i export, the descriptor evaluation protocols and
+                 monocular SLAM;
 - ``utils``    — configs, logs, progress, memory budget, checkpoints.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -2,7 +2,7 @@
 
 The subcommands and flags of ``opencv_dlco_tpu.cli`` for the stages the
 port carries; each stage is idempotent (resume-safe). Runs on the CUDA
-device.
+device; ``slam`` takes ``--device cpu`` for the plain PyTorch path.
 
 Usage examples:
     python -m opencv_dlco_tpu_torch.cli convert  -w ws --dataset liberty --patch-dir /data/liberty
@@ -18,6 +18,7 @@ Usage examples:
     python -m opencv_dlco_tpu_torch.cli export   -w ws --pr ...-pr.h5#7 --pj ...-pj.h5 --out vgg_generated_64.i
     python -m opencv_dlco_tpu_torch.cli workflow -w ws --datasets liberty,notredame
     python -m opencv_dlco_tpu_torch.cli e2e      -w ws
+    python -m opencv_dlco_tpu_torch.cli slam     --root kitti --sequence 07 --model vgg_generated_64.i
 """
 
 from __future__ import annotations
@@ -144,6 +145,39 @@ def cmd_e2e(args):
     print(json.dumps(summary, indent=1, sort_keys=True, default=str))
 
 
+def cmd_slam(args):
+    """Full monocular SLAM over a KITTI odometry-format sequence."""
+    from .data.kitti import evaluate_against_gt, load_sequence
+    from .models.vgg import VGGDescriptor
+    from .pipeline.slam import SlamConfig, run_slam
+
+    seq = load_sequence(args.root, args.sequence, camera=args.camera,
+                        max_frames=args.max_frames)
+    frames = [seq.load_frame(i) for i in range(len(seq))]
+    with open(args.model) as f:
+        model = VGGDescriptor.from_header(f.read(), device=args.device)
+    cfg = SlamConfig(n_keypoints=args.keypoints,
+                     ba_window=args.ba_window,
+                     loop_gap=args.loop_gap)
+    res = run_slam(frames, seq.intrinsics, model, cfg)
+    out = {
+        "n_frames": len(seq),
+        "n_keyframes": int(res.keyframes.shape[0]),
+        "n_loop_closures": len(res.loop_edges),
+        "trajectory": res.translations.tolist(),
+    }
+    if seq.poses is not None:
+        out["eval"] = evaluate_against_gt(res, seq)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=2)
+        del out["trajectory"]
+        out["trajectory_file"] = args.out
+    else:
+        del out["trajectory"]
+    print(json.dumps(out, indent=2))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m opencv_dlco_tpu_torch.cli", description=__doc__,
@@ -264,6 +298,23 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--pj-iters", type=int, default=50_000)
     sp.add_argument("--out-json", default=None)
     sp.set_defaults(fn=cmd_e2e)
+
+    sp = sub.add_parser("slam", help="monocular SLAM over a KITTI "
+                                     "odometry-format sequence")
+    sp.add_argument("--root", required=True,
+                    help="KITTI root (sequences/<seq>/, poses/)")
+    sp.add_argument("--sequence", required=True, help="e.g. 07")
+    sp.add_argument("--camera", default="image_0")
+    sp.add_argument("--model", required=True, help="vgg_generated .i header")
+    sp.add_argument("--keypoints", type=int, default=384)
+    sp.add_argument("--ba-window", type=int, default=6)
+    sp.add_argument("--loop-gap", type=int, default=12)
+    sp.add_argument("--max-frames", type=int, default=None)
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    sp.add_argument("--out", default=None,
+                    help="write trajectory + eval JSON here")
+    sp.set_defaults(fn=cmd_slam)
     return p
 
 

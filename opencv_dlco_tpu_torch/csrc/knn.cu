@@ -1,8 +1,9 @@
-// Kernels F and H: fused k-nearest-neighbour search (distance products and
-// a running top-k in one pass).
+// Kernels F, G and H: fused k-nearest-neighbour search (distance products
+// and a running top-k in one pass).
 //
 // Replaces the TPU kernels opencv_dlco_tpu/ops/knn_pallas.py::_knn2_kernel
-// (entry points knn2_fused and, with a batch, knn2_fused_batched) and
+// (entry points knn2_fused, kernel F, and with a batch knn2_fused_batched,
+// kernel G, the SLAM pose chunk's C matching problems) and
 // ::_knnk_kernel (entry point knnk_fused), both driven by _fused_call. For
 // queries q (B, N, D) and train rows t (B, M, D):
 //   dist[n, m] = max(|q_n|^2 + |t_m|^2 - 2 q_n . t_m, 0)

@@ -6,7 +6,9 @@ packages draw the same data from the same numpy seed:
 - ``synth_pr_dataset``: distance matrices with a planted informative
   structure the PR solver must recover;
 - ``synth_patch_pairs``: uint8 patch pairs where positives are warped +
-  noised copies — drives the stage-1..3 descriptor/distance path.
+  noised copies — drives the stage-1..3 descriptor/distance path;
+- ``render_blob_sequence``: a rendered closed-loop monocular sequence, the
+  SLAM benchmark scene.
 """
 
 from __future__ import annotations
@@ -38,6 +40,56 @@ def _smooth(rng: np.random.Generator, n: int, size: int) -> np.ndarray:
     lo = img.min(axis=(1, 2), keepdims=True)
     hi = img.max(axis=(1, 2), keepdims=True)
     return (img - lo) / (hi - lo + 1e-9)
+
+
+def render_blob_sequence(rng: np.random.Generator, n_frames: int = 48,
+                         *, size: int = 256, f: float = 300.0,
+                         n_blobs: int = 240, radius: float = 1.5,
+                         closed_loop: bool = True
+                         ) -> Tuple[list, np.ndarray, Tuple[float, float, float, float]]:
+    """Rendered monocular sequence over a 3D Gaussian-blob field.
+
+    Camera follows a circle in the x-y plane (closing the loop when
+    ``closed_loop``), looking down +z — the SLAM benchmark scene (loop
+    closures are detectable, not injected). Vectorised splatting (one
+    (H*W, B) exp per frame) so rendering never dominates a benchmark run.
+
+    Returns (frames [uint8 (size, size)], gt camera centers (F, 3),
+    intrinsics (fx, fy, cx, cy)).
+    """
+    c = size / 2.0
+    pts3d = np.stack([
+        rng.uniform(-4, 4, n_blobs), rng.uniform(-4, 4, n_blobs),
+        rng.uniform(5, 12, n_blobs)
+    ], 1)
+    amps = (rng.uniform(0.4, 1.0, n_blobs)
+            * rng.choice([-1, 1], n_blobs)).astype(np.float32)
+    sigmas = rng.uniform(2.0, 4.0, n_blobs).astype(np.float32)
+    inv2s2 = (1.0 / (2.0 * sigmas ** 2)).astype(np.float32)
+    yy, xx = np.mgrid[:size, :size].astype(np.float32)
+    span = 2 * np.pi if closed_loop else np.pi
+    frames, centers = [], []
+    for i in range(n_frames):
+        th = span * i / n_frames
+        center = np.array([radius * (np.cos(th) - 1.0),
+                           radius * np.sin(th), 0.0])
+        yaw = 0.03 * np.sin(th)
+        cy_, sy = np.cos(yaw), np.sin(yaw)
+        r_wc = np.array([[cy_, 0, sy], [0, 1, 0], [-sy, 0, cy_]])
+        r = r_wc.T                      # world -> cam
+        t = -r @ center
+        p = pts3d @ r.T + t
+        u = (f * p[:, 0] / p[:, 2] + c).astype(np.float32)
+        v = (f * p[:, 1] / p[:, 2] + c).astype(np.float32)
+        vis = ((u > -10) & (u < size + 10) & (v > -10) & (v < size + 10)
+               & (p[:, 2] > 0.1))
+        d2 = ((yy[:, :, None] - v[vis]) ** 2
+              + (xx[:, :, None] - u[vis]) ** 2)
+        img = np.einsum("hwb,b->hw", np.exp(-d2 * inv2s2[vis]), amps[vis])
+        img = (img - img.min()) / (img.max() - img.min() + 1e-12)
+        frames.append((img * 255).astype(np.uint8))
+        centers.append(center)
+    return frames, np.stack(centers), (f, f, c, c)
 
 
 def _warp_bilinear(imgs: np.ndarray, dy, dx, angle, scale,

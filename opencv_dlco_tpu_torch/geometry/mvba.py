@@ -1,0 +1,190 @@
+"""Multi-view bundle adjustment with Schur-complement reduction.
+
+Port of ``opencv_dlco_tpu/geometry/mvba.py`` (the single-device solver; the
+landmark-sharded variant belongs to the multi-device slice). M keyframe
+poses, N landmarks, K observations; per Levenberg-Marquardt step:
+
+  1. per-observation residuals and Jacobian blocks J_c (2, 6) wrt the
+     observing camera and J_p (2, 3) wrt the landmark (forward mode);
+  2. scatter-assembled block Hessians Hcc (M, 6, 6), Hpp (N, 3, 3) and the
+     per-observation coupling blocks Hcp (K, 6, 3);
+  3. landmark elimination with the observations grouped per landmark (the
+     static-width ``table``): S = Hcc - sum_p W_p Hpp_p^-1 W_p^T, as
+     (L, L) camera-pair outer products scattered into (M, M, 6, 6);
+  4. a dense (6M, 6M) solve and landmark back-substitution.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .jacobian import jac_fwd
+from .se3 import _mv, se3_exp
+
+
+def _obs_residual(xi, x3d, r0, t0, uv):
+    """(..., 2) reprojection residual under a left pose increment."""
+    dr, dt = se3_exp(xi)
+    r = torch.matmul(dr, r0)
+    t = _mv(dr, t0) + dt
+    q = _mv(r, x3d) + t
+    return uv - q[..., :2] / q[..., 2:3]
+
+
+def build_landmark_table(pt_idx: np.ndarray, n_landmarks: int,
+                         max_obs: Optional[int] = None):
+    """Group observation indices by landmark into a padded (N, L) table.
+
+    Returns (table (N, L) int32 with -1 padding, L). Host-side numpy, as in
+    the reference."""
+    lists = [[] for _ in range(n_landmarks)]
+    for k, p in enumerate(np.asarray(pt_idx)):
+        lists[p].append(k)
+    width = max(len(l) for l in lists) if lists else 1
+    if max_obs is not None:
+        width = min(width, max_obs)
+    table = np.full((n_landmarks, width), -1, np.int32)
+    for p, l in enumerate(lists):
+        take = l[:width]
+        table[p, :len(take)] = take
+    return table, width
+
+
+class MVBAResult(NamedTuple):
+    r: torch.Tensor           # (M, 3, 3)
+    t: torch.Tensor           # (M, 3)
+    points: torch.Tensor      # (N, 3)
+    cost_history: torch.Tensor
+
+
+def _residuals(r, t, points, cam_idx, pt_idx, uv):
+    zero = torch.zeros(uv.shape[:-1] + (6,), dtype=uv.dtype,
+                       device=uv.device)
+    return _obs_residual(zero, points[pt_idx], r[cam_idx], t[cam_idx], uv)
+
+
+def _linearize(r, t, points, cam_idx, uv, w, pt_idx):
+    v0 = torch.cat([torch.zeros(uv.shape[:-1] + (6,), dtype=uv.dtype,
+                                device=uv.device), points[pt_idx]], -1)
+    res, j = jac_fwd(lambda v, rc, tc: _obs_residual(v[..., :6], v[..., 6:],
+                                                     rc, tc, uv),
+                     v0, r[cam_idx], t[cam_idx])
+    cost = torch.sum(w[:, None] * res * res)
+    return res, j[..., :6], j[..., 6:], cost
+
+
+def _schur_terms(res, jc, jp, w, cam_idx, pt_idx, table, m, lam):
+    """The reduced camera system: (S (M, M, 6, 6), rhs (M, 6), hpp_inv
+    (N, 3, 3), bp (N, 3), hcp_blocks (K, 6, 3)); landmark blocks damped
+    here, camera damping and the gauge prior left to the caller."""
+    dt, dev = res.dtype, res.device
+    wk = w[:, None, None]
+    hcc_blocks = wk * torch.einsum("kri,krj->kij", jc, jc)
+    hpp_blocks = wk * torch.einsum("kri,krj->kij", jp, jp)
+    hcp_blocks = wk * torch.einsum("kri,krj->kij", jc, jp)
+    bc_obs = -torch.einsum("k,kri,kr->ki", w, jc, res)
+    bp_obs = -torch.einsum("k,kri,kr->ki", w, jp, res)
+
+    n = table.shape[0]
+    hpp = torch.zeros((n, 3, 3), dtype=dt, device=dev).index_add(
+        0, pt_idx, hpp_blocks)
+    bp = torch.zeros((n, 3), dtype=dt, device=dev).index_add(0, pt_idx,
+                                                             bp_obs)
+    hcc = torch.zeros((m, 6, 6), dtype=dt, device=dev).index_add(
+        0, cam_idx, hcc_blocks)
+    bc = torch.zeros((m, 6), dtype=dt, device=dev).index_add(0, cam_idx,
+                                                             bc_obs)
+
+    # damp landmark blocks then invert (3x3, batched)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    tr = torch.diagonal(hpp, dim1=-2, dim2=-1).sum(-1)
+    hpp_d = hpp + lam * eye3 * torch.clamp(tr / 3.0, min=1e-8)[:, None, None]
+    hpp_inv = torch.linalg.inv(hpp_d + 1e-10 * eye3)
+
+    # per-landmark elimination over that landmark's (padded) observations
+    valid = table >= 0                                     # (N, L)
+    tbl = torch.clamp(table, min=0)
+    w_blk = hcp_blocks[tbl] * valid[..., None, None]       # (N, L, 6, 3)
+    cams = cam_idx[tbl]                                    # (N, L)
+    tmp = torch.einsum("nlij,njk->nlik", w_blk, hpp_inv)
+    pair = torch.einsum("nlik,nmjk->nlmij", tmp, w_blk)    # (N, L, L, 6, 6)
+    rhs_corr = torch.einsum("nlik,nk->nli", tmp, bp)       # (N, L, 6)
+
+    vv = valid[:, :, None] & valid[:, None, :]
+    lin = (cams[:, :, None] * m + cams[:, None, :]).reshape(-1)
+    s = torch.zeros((m * m, 6, 6), dtype=dt, device=dev).index_add(
+        0, lin, torch.where(vv[..., None, None], pair, 0.0).reshape(-1, 6, 6))
+    diag = torch.arange(m, device=dev) * (m + 1)
+    s = torch.zeros((m * m, 6, 6), dtype=dt, device=dev).index_add(
+        0, diag, hcc) - s
+    rhs = bc.index_add(0, cams.reshape(-1),
+                       -torch.where(valid[..., None], rhs_corr,
+                                    0.0).reshape(-1, 6))
+    return s.reshape(m, m, 6, 6), rhs, hpp_inv, bp, hcp_blocks
+
+
+def _solve_and_backsub(s, rhs, hpp_inv, bp, hcp_blocks, pt_idx, cam_idx, m):
+    sd = s.permute(0, 2, 1, 3).reshape(6 * m, 6 * m)
+    eye = torch.eye(6 * m, dtype=s.dtype, device=s.device)
+    dc = torch.linalg.solve(sd + 1e-9 * eye,
+                            rhs.reshape(-1, 1))[:, 0].reshape(m, 6)
+    # back-substitute: dp_n = Hpp_n^-1 (bp_n - sum_obs Hcp_k^T dc_cam(k))
+    corr = torch.einsum("kij,ki->kj", hcp_blocks, dc[cam_idx])  # (K, 3)
+    bp_corr = bp - torch.zeros_like(bp).index_add(0, pt_idx, corr)
+    dp = torch.einsum("nij,nj->ni", hpp_inv, bp_corr)
+    return dc, dp
+
+
+def multi_view_ba(r0, t0, points0, cam_idx, pt_idx, uv, table,
+                  weights=None, *, n_iters: int = 10,
+                  init_lambda: float = 1e-3,
+                  gauge_weight: float = 1e6) -> MVBAResult:
+    """Single-device multi-view BA. r0 (M, 3, 3), t0 (M, 3), points0
+    (N, 3); per observation cam_idx, pt_idx (K,) and uv (K, 2); table
+    (N, L) from build_landmark_table (numpy or tensor)."""
+    dt, dev = points0.dtype, points0.device
+    m = r0.shape[0]
+    cam_idx = torch.as_tensor(cam_idx, device=dev).long()
+    pt_idx = torch.as_tensor(pt_idx, device=dev).long()
+    table = torch.as_tensor(table, device=dev).long()
+    if weights is None:
+        weights = torch.ones(uv.shape[0], dtype=uv.dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    ar = torch.arange(m, device=dev)
+
+    def cost_of(r, t, points):
+        res = _residuals(r, t, points, cam_idx, pt_idx, uv)
+        return torch.sum(weights[:, None] * res * res)
+
+    r, t, points = r0, t0, points0
+    lam = torch.tensor(init_lambda, dtype=dt, device=dev)
+    costs = [cost_of(r0, t0, points0)]
+    for _ in range(n_iters):
+        res, jc, jp, cost = _linearize(r, t, points, cam_idx, uv, weights,
+                                       pt_idx)
+        s, rhs, hpp_inv, bp, hcp_b = _schur_terms(
+            res, jc, jp, weights, cam_idx, pt_idx, table, m, lam)
+        s = s.clone()
+        s[0, 0] = s[0, 0] + gauge_weight * eye6
+        tr = torch.diagonal(s[ar, ar], dim1=-2, dim2=-1).sum(-1)
+        s[ar, ar] = s[ar, ar] + lam * eye6 * torch.clamp(
+            tr / 6.0, min=1e-8)[:, None, None]
+        dc, dp = _solve_and_backsub(s, rhs, hpp_inv, bp, hcp_b, pt_idx,
+                                    cam_idx, m)
+        dr, dt2 = se3_exp(dc)
+        r_new = torch.matmul(dr, r)
+        t_new = _mv(dr, t) + dt2
+        p_new = points + dp
+        new_cost = cost_of(r_new, t_new, p_new)
+        accept = new_cost < cost
+        r = torch.where(accept, r_new, r)
+        t = torch.where(accept, t_new, t)
+        points = torch.where(accept, p_new, points)
+        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0),
+                          1e-9, 1e6)
+        costs.append(torch.where(accept, new_cost, cost))
+    return MVBAResult(r=r, t=t, points=points,
+                      cost_history=torch.stack(costs))

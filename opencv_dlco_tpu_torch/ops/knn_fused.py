@@ -1,18 +1,20 @@
-"""Kernels F and H: fused k-NN, distance products and a running top-k in
-one pass (``csrc/knn.cu``).
+"""Kernels F, G and H: fused k-NN, distance products and a running top-k
+in one pass (``csrc/knn.cu``).
 
 Port of ``opencv_dlco_tpu/ops/knn_pallas.py``:
 
 - ``knn2_fused``: kernel F, the 2 nearest train rows of every query;
+- ``knn2_fused_batched``: kernel G, F over a leading batch axis (the SLAM
+  pose chunk's C matching problems, one launch, the batch on grid z);
 - ``knnk_fused``: kernel H, the k nearest for 1 <= k <= 16.
 
-Both compute ||q||^2 + ||t||^2 - 2 q.t clamped at 0 and return (dists
+All compute ||q||^2 + ||t||^2 - 2 q.t clamped at 0 and return (dists
 (N, k) f32 ascending, idx (N, k) int32), equal distances ordered by the
 lower train index, (inf, -1) where a query has fewer than k neighbours.
 ``bf16=True`` rounds q and t to bf16 before the norms and the products
 (the TPU kernels' fast mode); ``bf16=False`` is true f32, TF32 off.
-``_fused_call`` takes a leading batch axis, as the TPU's ``_fused_call``
-does; the batched entry point (kernel G) belongs to the SLAM slice.
+``_fused_call`` takes the leading batch axis, as the TPU's ``_fused_call``
+does.
 
 On a CPU tensor each wrapper runs ``knn_plain``, the same function in
 plain PyTorch; on a CUDA tensor it launches the kernel or raises.
@@ -146,6 +148,16 @@ def knn2_fused(query: torch.Tensor, train: torch.Tensor, *,
     return od[0], oi[0]
 
 
+def knn2_fused_batched(query: torch.Tensor, train: torch.Tensor, *,
+                       bf16: bool = False):
+    """Batched 2-NN (kernel G): (B, N, D) x (B, M, D) -> (dists (B, N, 2),
+    idx (B, N, 2)) in one launch. Default f32 (TF32 off): pose estimation
+    is sensitive to match identity, and f32 is the mode the reference ran
+    it in."""
+    return _fused_call(query, train, 2, bf16=bf16,
+                       wrapper=knn2_fused_batched)
+
+
 def knnk_fused(query: torch.Tensor, train: torch.Tensor, k: int, *,
                bf16: bool = True):
     """Top-k (1 <= k <= 16) per query (kernel H): (dists (N, k) ascending,
@@ -157,4 +169,5 @@ def knnk_fused(query: torch.Tensor, train: torch.Tensor, k: int, *,
 
 #: kernel launches since the count was last set to 0
 knn2_fused.launches = 0
+knn2_fused_batched.launches = 0
 knnk_fused.launches = 0

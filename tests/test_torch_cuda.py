@@ -215,3 +215,38 @@ def test_kernels_f_and_h_edges(dev):
     _, ik = knn_fused.knnk_fused(base, dup, 3, bf16=False)
     assert torch.equal(ik.cpu(), torch.arange(6)[:, None]
                        + torch.tensor([0, 6, 12]))
+
+
+@pytest.mark.parametrize("c,n,m,d", [(16, 256, 256, 64), (3, 77, 130, 120),
+                                     (1, 300, 90, 64)])
+def test_kernel_g_matches_plain_with_masked_rows(dev, c, n, m, d):
+    """Kernel G (knn2_fused_batched, f32): one launch per batch, against
+    knn_plain on the batch, with the SLAM pose chunk's masks (invalid
+    queries at 1e6, invalid train rows at -1e6)."""
+    g = torch.Generator(device=dev).manual_seed(c * n + d)
+    q = torch.randn((c, n, d), generator=g, device=dev) * d ** -0.5
+    t = torch.randn((c, m, d), generator=g, device=dev) * d ** -0.5
+    k = min(n, m) // 2
+    t[:, :k] = q[:, :k] + 0.05 * d ** -0.5 * torch.randn(
+        (c, k, d), generator=g, device=dev)
+    vq = torch.rand((c, n), generator=g, device=dev) < 0.8
+    vt = torch.rand((c, m), generator=g, device=dev) < 0.8
+    q = torch.where(vq[..., None], q, torch.full_like(q, 1e6))
+    t = torch.where(vt[..., None], t, torch.full_like(t, -1e6))
+    before = knn_fused.knn2_fused_batched.launches
+    dk, ik = knn_fused.knn2_fused_batched(q, t)
+    assert knn_fused.knn2_fused_batched.launches == before + 1
+    dp, ip = knn_fused.knn_plain(q, t, 2, bf16=False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dk).all())
+    np.testing.assert_array_equal(ik.cpu().numpy(), ip.cpu().numpy())
+    mag = (q.double() ** 2).sum(-1)[..., None] + torch.gather(
+        (t.double() ** 2).sum(-1)[:, None, :].expand(-1, n, -1), 2,
+        ik.long())
+    err = (dk.double() - dp.double()).abs()
+    assert bool((err <= 1e-5 * dp.double().abs()
+                 + 8 * 1.1920929e-07 * mag).all())
+    # a masked train row is never a real query's neighbour
+    picked = torch.gather(vt[:, None, :].expand(-1, n, -1), 2,
+                          ik[..., :1].long())[..., 0]
+    assert bool(picked[vq].all())
