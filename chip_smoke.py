@@ -4,7 +4,9 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   ``opencv_dlco_tpu_torch/csrc`` (one nvcc per source, in parallel).
+   ``opencv_dlco_tpu_torch/csrc`` (one nvcc per source, in parallel), and
+   prints each kernel's registers, shared memory and spills from
+   ``nvcc -Xptxas -v`` (and any ptxas performance note).
 2. Drives the trainer's stages 2-6 through the port's entry points at
    full Brown width: the 40,960-filter x 4,096-pixel bank (5,120 rings),
    64x64 patches, the full 16x16 PR grid (S = 256) with the reference-scale
@@ -41,12 +43,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    parse, finite descriptors, fused matching against the scan path, and
    each kNN kernel call of the evaluation against the plain version.
 6. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (E, F, H at the benchmark's shapes, F and H also at
+   main path's shapes (A at the 256- and 8,192-pair blocks of compdist
+   and run_reference_scale and at a small block of 64 pairs, B at 1 and
+   48 steps of the PR grid with each of its three kernels' device time a
+   step from torch.profiler, E, F, H at the benchmark's shapes, F and H also at
    the 120-D export's width and at widths past one D chunk, G on the SLAM
    pose chunk's recorded inputs) and times
    kernel, plain version, one library call computing the same products or
    function where there is one (``library_ms``, a yardstick the port never
-   calls), and the bound (bytes or operations over the card's peaks).
+   calls), and the bound (bytes or operations over the card's peaks);
+   then A's and B's device time inside 03_compdist and 04_prsweep
+   (main-path launches x the per-call time) beside the stage seconds.
 7. Prints one JSON line with every kernel, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line. Any failed phase
    exits non-zero without that line.
@@ -55,6 +62,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -86,6 +94,9 @@ MINMAX_INSTR_PER_S = F32_INSTR_PER_S / 2
 TOL_F32 = (3e-5, 3e-4)
 TOL_BF16 = (5e-3, 0.5)
 TOL_RING = (1e-4, 1e-5)
+# kernel A's timed pair blocks: a small block, Workspace.pair_block (this
+# script's compdist), run_reference_scale's pair_block
+A_PAIRS = (64, 256, 8192)
 
 
 def card_line():
@@ -140,6 +151,72 @@ def check_close(name, got, ref, tol):
             f"{name}: {int(bad.sum())} of {bad.numel()} values outside "
             f"rtol={rtol} atol={atol}; max abs err {float(err.max())}")
     return float(err.max())
+
+
+def _kernel_name(mangled):
+    """The plain name of a kernel from its mangled symbol: the last name of
+    a nested one (_ZN <len><name>... E, e.g. inside the anonymous
+    namespace), or the name of one at file scope (_Z<len><name>)."""
+    m = re.match(r"_ZN", mangled)
+    pos, name = (3, mangled) if m else (2, mangled)
+    while pos < len(mangled) and mangled[pos].isdigit():
+        n = re.match(r"\d+", mangled[pos:]).group(0)
+        name = mangled[pos + len(n):pos + len(n) + int(n)]
+        pos += len(n) + int(n)
+        if not m:
+            break
+    return name
+
+
+def ptxas_summary(cuda_build):
+    """One line per kernel of this run's builds from nvcc -Xptxas -v:
+    registers, static shared memory, spill stores/loads, and the dynamic
+    shared memory the wgmma kernels request at launch."""
+    lines = []
+    for lib, log in cuda_build.BUILD_LOGS.items():
+        name, facts = None, {}
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name, facts = _kernel_name(m.group(1)), {}
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name:
+                facts["spill_stores"], facts["spill_loads"] = map(
+                    int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                smem = re.search(r"(\d+) bytes smem", line)
+                facts.update(registers=int(m.group(1)),
+                             static_smem=int(smem.group(1)) if smem else 0)
+                lines.append(f"  ptxas[{lib}] {name}: " + json.dumps(facts))
+            if "Performance Loss" in line:
+                lines.append(f"  ptxas[{lib}] note: {line.strip()}")
+    libs = {"ring_dist": [("ring_dist_wgmma", 0)],
+            "rda_wide": [("wide_f_wgmma", 1), ("wide_df_wgmma", 2)]}
+    for lib, kernels in libs.items():
+        fn = getattr(cuda_build.load(lib), f"{lib}_smem_bytes")
+        for kernel, which in kernels:
+            lines.append(f"  dynamic smem[{lib}] {kernel}: {fn(which)} bytes "
+                         f"a CTA")
+    return lines
+
+
+def kernel_shares(secs, launches, res):
+    """Kernels A and B inside their stages: main-path launches x the
+    per-call time at the stage's shape (A: 256-pair blocks in
+    03_compdist; B: 48-step log periods in 04_prsweep), beside the stage's
+    wall seconds."""
+    out = {}
+    for key, row, stage in (("A", "A256", "03_compdist"),
+                            ("B", f"B{STEPS_PER_LOG}", "04_prsweep")):
+        dev_s = launches[key] * res[row]["ms"] / 1e3
+        out[f"{key} in {stage}"] = dict(
+            launches=launches[key], ms_per_call=res[row]["ms"],
+            device_s=dev_s, stage_s=secs[stage],
+            share=dev_s / secs[stage])
+    return out
 
 
 def run_main_path(torch, root):
@@ -398,39 +475,52 @@ def kernel_checks(torch, ws, dist):
     results = {}
     dev = torch.device("cuda")
 
-    # -- A: full bank, 64 pairs -------------------------------------------
+    # -- A: full bank at a small block of 64 pairs and at the main
+    # path's blocks: 256 pairs (Workspace.pair_block, this script's
+    # compdist) and 8,192 (pipeline/e2e.py's run_reference_scale)
     with ArtifactStore(ws.path("dataset", "synsmoke.h5"), "r") as st:
-        idx = st.read("Indices")[:64]
+        idx = st.read("Indices")
         patches = st.read("Patches")
-    filt = torch.from_numpy(ws.load_filters()).to(dev)
-    f16 = filt.to(torch.bfloat16)
-    pt1 = batch_patch_transform(torch.from_numpy(patches[idx[:, 0]]).to(dev))
-    pt2 = batch_patch_transform(torch.from_numpy(patches[idx[:, 2]]).to(dev))
-    del filt
+    f16 = torch.from_numpy(ws.load_filters()).to(dev).to(torch.bfloat16)
     nf, npix = f16.shape
-    b = pt1.shape[0]
-    got = ring_distances_fused(f16, pt1, pt2, bf16=True)
-    ref = ring_distances_plain(f16, pt1, pt2, bf16=True)
-    torch.cuda.synchronize()
-    err = check_close("A", got, ref, TOL_RING)
-    cols = torch.cat([pt1, pt2]).to(torch.bfloat16).transpose(0, 1) \
-        .reshape(npix, -1).contiguous()
-    bnd, by = bound_ms(nf * npix * 2 + 2 * b * npix * 8 * 4
-                       + b * (nf // 8) * 4,
-                       2 * 2 * nf * npix * 8 * b, "bf16")
-    results["A"] = dict(
-        name="ring_distances_fused", route="cuda",
-        source="opencv_dlco_tpu_torch/csrc/ring_dist.cu",
-        replaces="opencv_dlco_tpu/ops/pair_distance_pallas.py:53",
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: ring_distances_fused(
-            f16, pt1, pt2, bf16=True), 10),
-        plain_ms=time_ms(torch, lambda: ring_distances_plain(
-            f16, pt1, pt2, bf16=True), 3),
-        bound_ms=bnd, bound_by=by,
-        library_ms=time_ms(torch, lambda: torch.matmul(f16, cols), 10),
-        shape=f"F {nf}x{npix} bf16, {b} pairs")
-    del f16, cols
+    for b in A_PAIRS:
+        pt1 = batch_patch_transform(
+            torch.from_numpy(patches[idx[:b, 0]]).to(dev))
+        pt2 = batch_patch_transform(
+            torch.from_numpy(patches[idx[:b, 2]]).to(dev))
+        got = ring_distances_fused(f16, pt1, pt2, bf16=True)
+        # the plain version in blocks of 256 pairs (at 8,192 its f32
+        # products of the whole block would take ~21 GB)
+        err = 0.0
+        for s0 in range(0, b, 256):
+            ref = ring_distances_plain(f16, pt1[s0:s0 + 256],
+                                       pt2[s0:s0 + 256], bf16=True)
+            err = max(err, check_close(f"A[{b} pairs]", got[s0:s0 + 256],
+                                       ref, TOL_RING))
+        del got, ref
+        cols = torch.cat([pt1, pt2]).to(torch.bfloat16).transpose(0, 1) \
+            .reshape(npix, -1).contiguous()
+        bnd, by = bound_ms(nf * npix * 2 + 2 * b * npix * 8 * 4
+                           + b * (nf // 8) * 4,
+                           2 * 2 * nf * npix * 8 * b, "bf16")
+        reps = 10 if b <= 256 else 3
+        results[f"A{b}"] = dict(
+            name="ring_distances_fused", route="cuda",
+            source="opencv_dlco_tpu_torch/csrc/ring_dist.cu",
+            replaces="opencv_dlco_tpu/ops/pair_distance_pallas.py:53",
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: ring_distances_fused(
+                f16, pt1, pt2, bf16=True), reps),
+            plain_ms=(time_ms(torch, lambda: ring_distances_plain(
+                f16, pt1, pt2, bf16=True), 3) if b <= 256 else None),
+            bound_ms=bnd, bound_by=by,
+            library_ms=time_ms(torch, lambda: torch.matmul(f16, cols), reps),
+            shape=f"F {nf}x{npix} bf16, {b} pairs" + (
+                "" if b <= 256 else "; plain version held in blocks of 256 "
+                "pairs, not timed"))
+        del pt1, pt2, cols
+        torch.cuda.empty_cache()
+    del f16
 
     # -- B, C, D on the main path's splits ----------------------------------
     data = ws._load_split(dist, 0.8, 2215)
@@ -483,6 +573,19 @@ def kernel_checks(torch, ws, dist):
             bound_ms=bnd, bound_by=by,
             library_ms=lib_steps(pos16, neg16, s, n_steps, torch.bfloat16),
             shape=f"S {s}, F {f_dim}, batch {bt}, bf16, {n_steps} steps")
+    # B's three launches a step: device time by kernel over one 48-step call
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fr.fused_block_train_wide(*args, batch=bt)
+        torch.cuda.synchronize()
+    phases = {}
+    for e in prof.key_averages():
+        for k in ("wide_f_wgmma", "wide_gate", "wide_df_wgmma"):
+            if k in e.key:
+                phases[k] = (phases.get(k, 0.0)
+                             + e.self_device_time_total / STEPS_PER_LOG)
+    results[f"B{STEPS_PER_LOG}"]["device_us_per_step"] = (
+        phases or "not measured")
 
     for s_dim in (1, 8):
         offs = fr.draw_block_offsets(gen, STEPS_PER_LOG, n_pos, n_neg, bt, 128)
@@ -947,10 +1050,8 @@ def main() -> int:
         t0 = time.perf_counter()
         cuda_build.build_all()
         print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
-        for name, log in cuda_build.BUILD_LOGS.items():
-            for line in log.splitlines():
-                if "Used" in line or "spill" in line:
-                    print(f"  ptxas[{name}]: {line.strip()}")
+        for line in ptxas_summary(cuda_build):
+            print(line)
 
         root = os.path.join(HERE, "workspace_torch_smoke")
         shutil.rmtree(root, ignore_errors=True)
@@ -1054,13 +1155,15 @@ def main() -> int:
         res.update(kernel_checks_3(torch, chunks[0]))
         for key, r in res.items():
             print(f"kernel {key}: " + json.dumps(r), flush=True)
+        print("kernel shares:", json.dumps(kernel_shares(
+            secs, launches, res)), flush=True)
         table = []
-        for key, row in (("A", "A"), ("B", f"B{STEPS_PER_LOG}"), ("C", "C1"),
-                         ("D", "D"), ("E", "E"), ("F", "F64"), ("G", "G"),
-                         ("H", "H64")):
+        for key, row in (("A", "A256"), ("B", f"B{STEPS_PER_LOG}"),
+                         ("C", "C1"), ("D", "D"), ("E", "E"), ("F", "F64"),
+                         ("G", "G"), ("H", "H64")):
             r = {k: v for k, v in res[row].items()
                  if k not in ("shape", "tolerance", "sorted_ms",
-                              "max_rel_err")}
+                              "max_rel_err", "device_us_per_step")}
             table.append({**r, "launches": launches[key] + launches2[key]
                           + launches3[key]})
         print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)

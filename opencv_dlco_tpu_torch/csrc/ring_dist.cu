@@ -6,129 +6,175 @@
 // over the 8 ring-major filter rows of ring r and the 8 angle channels.
 //
 // Bound on an H100 at the stage-3 shape (F 40960 x 4096, bf16): the two
-// products are 2 * 2 * 40960 * 4096 * 8 = 5.37 GFLOP per pair, about
-// 5.4 us per pair at 989 TFLOP/s bf16 dense; the bank (335 MB) is read once
-// per pair block, so the kernel is bound by operations, not bytes.
+// products are 2 * 2 * 40960 * 4096 * 8 = 5.37 GFLOP per pair, 5.4 us per
+// pair at 989 TFLOP/s bf16 dense; the bank (335 MB) is read from device
+// memory once per call, so the kernel is bound by operations.
 //
-// Design: a GEMM with M = filters, N = pairs x channels, K = pixels and two
-// accumulators (side 1, side 2). A CTA owns 64 filters (8 whole rings) x 16
-// pairs; 8 warps each own 16 filters (2 rings) x 8 pairs. Products run on
-// the tensor cores as mma.sync m16n8k16 bf16 with f32 accumulation; one n8
-// fragment is exactly one pair's 8 channels, so the epilogue truncates,
-// squares the difference and sums channels and the ring's 8 symmetric rows
-// with warp shuffles, in registers. Tiles stream through shared memory in
-// 64-pixel steps (plain loads, no cp.async/TMA pipeline yet).
+// Design: a GEMM with M = filters, N = 2 sides x 16 pairs x 8 channels,
+// K = pixels. A CTA owns 128 filters (16 rings) x 16 pairs; one producer
+// warp keeps a 4-stage ring of 48 KB stages full by TMA (bank tile 128 x 64
+// pixels, side-1 and side-2 column tiles 128 x 64, 128-byte swizzle,
+// mbarriers), and two consumer warpgroups each run wgmma m64n256k16 (64
+// filters x both sides) from shared memory into 128 f32 registers a thread.
+// The accumulator's n8 slice j is pair j's 8 channels (side 1 for j < 16,
+// side 2 for j >= 16) with the mma.m16n8 C layout, so the epilogue truncates,
+// squares the difference and sums channels and each ring's 8 symmetric rows
+// with warp shuffles; the pooled descriptors never reach device memory.
+// Tile order: groups of 16 filter tiles, filter tiles fastest, then pair
+// tiles, so a wave of CTAs shares its bank tiles and pair tiles in L2 and
+// the bank comes from device memory about once per call at any pair block.
+// On the H100 (chip_smoke.py): 1.65 ms at 256 pairs against the 1.39 ms
+// bound (84%), 3-10% above one cuBLAS product of the same operands; each
+// CTA pulls 48 KB from L2 per 4.2 MFLOP stage. Tried and dropped: a
+// persistent CTA per SM that overlapped the epilogue with the next tile's
+// loads (no faster), and two-CTA clusters multicasting the column tiles
+// (slower: each stage then waits for the consumers of both CTAs).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TF = 64;        // filters per CTA (8 rings)
-constexpr int TP = 16;        // pairs per CTA
-constexpr int NCH = 8;        // angle channels
-constexpr int TK = 64;        // pixels per smem step
-constexpr int LDS = TK + 8;   // padded smem row, bf16 (conflict-free frags)
-constexpr int NTHREADS = 256;
+constexpr int TF = 128;                       // filters per CTA (16 rings)
+constexpr int TP = 16;                        // pairs per CTA
+constexpr int NCH = 8;                        // angle channels
+constexpr int TK = 64;                        // pixels per stage
+constexpr int STAGES = 4;
+constexpr int GROUP_F = 16;                   // filter tiles per raster group
+constexpr int A_BYTES = TF * TK * 2;          // 16 KB bank tile
+constexpr int SIDE_BYTES = TP * NCH * TK * 2; // 16 KB column tile per side
+constexpr int STAGE_BYTES = A_BYTES + 2 * SIDE_BYTES;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+constexpr int NTHREADS = 288;                 // 2 consumer warpgroups + 1 warp
+constexpr int N_CONSUMER_WARPS = 8;
 
-__global__ void __launch_bounds__(NTHREADS)
-ring_dist_kernel(const bf16* __restrict__ filt,   // (nf, npix)
-                 const bf16* __restrict__ pt1,    // (n_pad, 8, npix)
-                 const bf16* __restrict__ pt2,    // (n_pad, 8, npix)
-                 float* __restrict__ out,         // (n_pairs, nf / 8)
-                 int nf, int npix, int n_pairs) {
-  __shared__ __align__(16) bf16 As[TF * LDS];
-  __shared__ __align__(16) bf16 B1[TP * NCH * LDS];
-  __shared__ __align__(16) bf16 B2[TP * NCH * LDS];
+__global__ void __launch_bounds__(NTHREADS, 1)
+ring_dist_wgmma(const __grid_constant__ CUtensorMap tm_f,
+                const __grid_constant__ CUtensorMap tm_p1,
+                const __grid_constant__ CUtensorMap tm_p2,
+                float* __restrict__ out, int n_ft, int n_pt, int npix,
+                int n_pairs) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = base + STAGES * STAGE_BYTES;  // STAGES barriers
+  const uint32_t empty = full + STAGES * 8;           // STAGES barriers
 
-  const int f0 = blockIdx.x * TF;
-  const int p0 = blockIdx.y * TP;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int mi = warp & 3;   // 16-filter block = rings 2*mi, 2*mi+1
-  const int ph = warp >> 2;  // pairs ph*8 .. ph*8+7
+  // raster: groups of GROUP_F filter tiles, filter tile fastest
+  const int per_group = GROUP_F * n_pt;
+  const int grp = blockIdx.x / per_group;
+  const int in_grp = blockIdx.x - grp * per_group;
+  const int gf0 = grp * GROUP_F;
+  const int gsz = min(GROUP_F, n_ft - gf0);
+  const int ft = gf0 + in_grp % gsz;
+  const int pt = in_grp / gsz;
+  const int nk = npix / TK;
 
-  float acc1[8][4], acc2[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc1[j][i] = acc2[j][i] = 0.f;
-
-  for (int k0 = 0; k0 < npix; k0 += TK) {
-    for (int c = tid; c < TF * TK / 8; c += NTHREADS) {
-      const int r = c / (TK / 8), cc = c % (TK / 8);
-      *reinterpret_cast<uint4*>(&As[r * LDS + cc * 8]) =
-          *reinterpret_cast<const uint4*>(
-              &filt[static_cast<size_t>(f0 + r) * npix + k0 + cc * 8]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, N_CONSUMER_WARPS);
     }
-    for (int c = tid; c < TP * NCH * TK / 8; c += NTHREADS) {
-      const int r = c / (TK / 8), cc = c % (TK / 8);
-      const size_t gi = static_cast<size_t>(p0 * NCH + r) * npix + k0 + cc * 8;
-      *reinterpret_cast<uint4*>(&B1[r * LDS + cc * 8]) =
-          *reinterpret_cast<const uint4*>(&pt1[gi]);
-      *reinterpret_cast<uint4*>(&B2[r * LDS + cc * 8]) =
-          *reinterpret_cast<const uint4*>(&pt2[gi]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      uint32_t a[4];
-      const bf16* ab = &As[(mi * 16 + g) * LDS + kk + q * 2];
-      a[0] = ld_u32(ab);
-      a[1] = ld_u32(ab + 8 * LDS);
-      a[2] = ld_u32(ab + 8);
-      a[3] = ld_u32(ab + 8 * LDS + 8);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int row = ((ph * 8 + j) * NCH + g) * LDS + kk + q * 2;
-        uint32_t b[2];
-        b[0] = ld_u32(&B1[row]);
-        b[1] = ld_u32(&B1[row + 8]);
-        mma_bf16_16816(acc1[j], a, b);
-        b[0] = ld_u32(&B2[row]);
-        b[1] = ld_u32(&B2[row + 8]);
-        mma_bf16_16816(acc2[j], a, b);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer warp: one thread issues the TMA loads
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(empty + 8 * s, ((kt / STAGES) & 1) ^ 1);
+        const uint32_t st = base + s * STAGE_BYTES;
+        mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+        tma_load_2d(st, &tm_f, full + 8 * s, kt * TK, ft * TF);
+        tma_load_2d(st + A_BYTES, &tm_p1, full + 8 * s, kt * TK,
+                    pt * TP * NCH);
+        tma_load_2d(st + A_BYTES + SIDE_BYTES, &tm_p2, full + 8 * s, kt * TK,
+                    pt * TP * NCH);
       }
     }
-    __syncthreads();
+    return;
   }
 
-  const int n_rings = nf / 8;
+  // consumers: warpgroup wg owns filters ft*128 + wg*64 .. +63
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  float acc[128];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(full + 8 * s, (kt / STAGES) & 1);
+    const uint32_t st = base + s * STAGE_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      const uint64_t da = sw128_desc(st + wg * (A_BYTES / 2) + kk * 32, 16,
+                                     1024);
+      const uint64_t db = sw128_desc(st + A_BYTES + kk * 32, 16, 1024);
+      wgmma_m64n256k16(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((kt - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // epilogue: rows g and g+8 of this warp's 16 filters are rings ring0 and
+  // ring0 + 1; n8 slice j / 16 + j is pair j's side 1 / side 2
+  const int n_rings = n_ft * (TF / 8);
+  const int ring0 = ft * (TF / 8) + wg * 8 + warp * 2;
+#pragma unroll
+  for (int j = 0; j < TP; ++j) {
     float e[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float d = fminf(acc2[j][i], 1.f) - fminf(acc1[j][i], 1.f);
+      const float d =
+          fminf(acc[64 + 4 * j + i], 1.f) - fminf(acc[4 * j + i], 1.f);
       e[i] = d * d;
     }
-    float r0 = e[0] + e[1];  // filter row g   -> ring 2*mi
-    float r1 = e[2] + e[3];  // filter row g+8 -> ring 2*mi + 1
+    float r0 = e[0] + e[1];
+    float r1 = e[2] + e[3];
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       r0 += __shfl_xor_sync(0xffffffffu, r0, off);
       r1 += __shfl_xor_sync(0xffffffffu, r1, off);
     }
-    const int pair = p0 + ph * 8 + j;
-    if (lane == 0 && pair < n_pairs) {
-      float* o = &out[static_cast<size_t>(pair) * n_rings + f0 / 8 + 2 * mi];
-      o[0] = r0;
-      o[1] = r1;
-    }
+    const int pair = pt * TP + j;
+    if (lane == 0 && pair < n_pairs)
+      *reinterpret_cast<float2*>(
+          &out[static_cast<size_t>(pair) * n_rings + ring0]) =
+          make_float2(r0, r1);
   }
 }
 
 }  // namespace
 
 // filt (nf, npix) bf16; pt1/pt2 (n_pad, 8, npix) bf16 with n_pad % 16 == 0
-// (padding pairs zero); out (n_pairs, nf / 8) f32. nf % 64 == 0 and
-// npix % 64 == 0. Returns cudaGetLastError() after the launch.
+// (padding pairs zero); out (n_pairs, nf / 8) f32. nf % 128 == 0,
+// npix % 64 == 0, all three inputs 16-byte aligned. Returns a CUDA error
+// code: the launch's, or cudaErrorInvalidValue when a tensor map cannot be
+// encoded.
 extern "C" int ring_dist_launch(const void* filt, const void* pt1,
                                 const void* pt2, void* out, int nf, int npix,
                                 int n_pad, int n_pairs, void* stream) {
-  const dim3 grid(nf / TF, n_pad / TP);
-  ring_dist_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(filt), static_cast<const bf16*>(pt1),
-      static_cast<const bf16*>(pt2), static_cast<float*>(out), nf, npix,
+  CUtensorMap tm_f, tm_p1, tm_p2;
+  const uint64_t row = static_cast<uint64_t>(npix) * 2;
+  if (!tmap_bf16_2d(&tm_f, filt, npix, nf, row, TK, TF) ||
+      !tmap_bf16_2d(&tm_p1, pt1, npix, static_cast<uint64_t>(n_pad) * NCH,
+                    row, TK, TP * NCH) ||
+      !tmap_bf16_2d(&tm_p2, pt2, npix, static_cast<uint64_t>(n_pad) * NCH,
+                    row, TK, TP * NCH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncSetAttribute(ring_dist_wgmma,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  const int n_ft = nf / TF, n_pt = n_pad / TP;
+  ring_dist_wgmma<<<n_ft * n_pt, NTHREADS, SMEM_BYTES,
+                    static_cast<cudaStream_t>(stream)>>>(
+      tm_f, tm_p1, tm_p2, static_cast<float*>(out), n_ft, n_pt, npix,
       n_pairs);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Dynamic shared memory a CTA of the kernel requests (``which`` unused).
+extern "C" int ring_dist_smem_bytes(int which) { return SMEM_BYTES; }

@@ -24,13 +24,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-#: library name -> CUDA source; every source also includes common.cuh
+#: library name -> CUDA source; every source may include the headers
+#: (``*.cuh``) beside it
 SOURCES = {
     "ring_dist": "ring_dist.cu",      # kernel A
     "rda_wide": "rda_wide.cu",        # kernel B
     "rda_narrow": "rda_narrow.cu",    # kernels C and D
     "hinge": "hinge.cu",              # kernel E
-    "knn": "knn.cu",                  # kernels F and H (G later)
+    "knn": "knn.cu",                  # kernels F, G and H
 }
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,8 +44,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "ring_dist": ("ring_dist_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "rda_wide": ("rda_wide_train",
-                 [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                  _I, _I, _I, _I, _I, _I, _P]),
+                 [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "rda_narrow": ("rda_narrow_run",
                    [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _P]),
@@ -54,7 +55,8 @@ SIGNATURES = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-#: ptxas report (registers, shared memory, spills) of each build this process ran
+#: ptxas report (registers, shared memory, spills) of each library this
+#: process built or found built (kept beside the library)
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -68,7 +70,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for fn in (SOURCES[name], "common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fn in (SOURCES[name], *headers):
         with open(os.path.join(CSRC, fn), "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
@@ -85,6 +88,10 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     paths = {n: _lib_path(n) for n in names}
     for n in names:
         if os.path.exists(paths[n]):
+            log = paths[n] + ".ptxas.txt"
+            if n not in BUILD_LOGS and os.path.exists(log):
+                with open(log) as fh:
+                    BUILD_LOGS[n] = fh.read()
             continue
         tmp = paths[n] + f".{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
@@ -99,6 +106,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"--- {n} (nvcc exit {proc.returncode}) ---\n{out}")
             continue
+        with open(paths[n] + ".ptxas.txt", "w") as fh:
+            fh.write(out)
         os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

@@ -8,7 +8,10 @@ distribution inside from a PRNG key, ``fused_rda.py:191-199``):
 - ``fused_block_train_wide``: kernel B, the wide sweep axis (S > 8),
   ``csrc/rda_wide.cu``. It serves both TPU twins, ``fused_block_train_wide``
   and ``fused_block_train_wide_pipelined``. The resident w rides at the
-  input dtype; the returned w is recomputed in f32 from df.
+  input dtype; the returned w is recomputed in f32 from df. With bf16
+  splits a step is three launches: f in F slices (``k_slices``) with fd
+  kept in a scratch, the gate summing the slices in order, then df and w
+  (scratch shapes: ``wide_scratch``).
 - ``fused_block_train``: kernel C, S <= 8 with f32 w, df and g,
   ``csrc/rda_narrow.cu``.
 - ``fused_block_grad``: kernel D, one block's subgradient, run as the
@@ -91,6 +94,36 @@ def _cuda_args(what, pos, neg, *tensors):
 
 # -- kernel B: wide sweep axis ---------------------------------------------
 
+N_SLICES = 8    # F slices of the bf16 route's phase 1 (split K)
+K_TILE = 64     # features per phase-1 stage; F must be a multiple
+ROW_TILE = 128  # batch rows per phase-1 CTA; bf16 batches must be multiples
+S_COLS = 256    # S columns per phase-1 CTA (partial f is padded to these)
+S_TILE = 128    # S rows per phase-2 CTA (violT is padded to these)
+
+
+def k_slices(f_dim: int):
+    """The bf16 route's split of F over phase-1 CTAs: [(f0, f1), ...], at
+    most N_SLICES slices of whole K_TILE tiles, sizes within one tile. The
+    gate sums the slices' partial f in this order."""
+    nk = f_dim // K_TILE
+    ns = min(N_SLICES, nk)
+    return [(fs * nk // ns * K_TILE, (fs + 1) * nk // ns * K_TILE)
+            for fs in range(ns)]
+
+
+def wide_scratch(batch: int, f_dim: int, s_dim: int, device):
+    """Scratch of the bf16 route, allocated once per call: violT
+    (S padded to S_TILE, batch) bf16 0/1; fd (batch, F) bf16, each step's
+    sampled difference, written by phase 1 and read by phase 2; part
+    (n_slices, batch, S padded to S_COLS) f32, phase 1's partial f."""
+    s_pad = -(-s_dim // S_TILE) * S_TILE
+    s_cols = -(-s_dim // S_COLS) * S_COLS
+    return (torch.empty((s_pad, batch), dtype=torch.bfloat16, device=device),
+            torch.empty((batch, f_dim), dtype=torch.bfloat16, device=device),
+            torch.empty((len(k_slices(f_dim)), batch, s_cols),
+                        dtype=torch.float32, device=device))
+
+
 def fused_block_train_wide_plain(pos, neg, w, df_avg, t, mu, gamma, offs, *,
                                  batch: int, tile_b: int = 128):
     """Plain PyTorch version of kernel B; returns (w, df_avg, t_new)."""
@@ -122,7 +155,8 @@ def fused_block_train_wide(pos, neg, w, df_avg, t, mu, gamma, offs, *,
     df_avg (S, F) f32; t samples consumed so far; mu, gamma (S,) f32;
     offs (n_steps, 2) block offsets in tile_b units. Returns (w, df_avg,
     t_new) with w recomputed in f32 from df_avg. The kernel needs
-    F % 64 == 0 and tile_b % 64 == 0; other shapes raise.
+    F % 64 == 0 and tile_b % 64 == 0, and with bf16 splits batch % 128 == 0
+    and 16-byte aligned pos/neg; other shapes raise.
     """
     offs = _check(pos, neg, w, offs, batch, tile_b, "fused_block_train_wide")
     if pos.device.type == "cpu":
@@ -132,14 +166,19 @@ def fused_block_train_wide(pos, neg, w, df_avg, t, mu, gamma, offs, *,
     if f_dim % 64 or tile_b % 64:
         raise ValueError(f"fused_block_train_wide: kernel B needs F % 64 == 0 "
                          f"and tile_b % 64 == 0 (F={f_dim}, tile_b={tile_b})")
+    bf16 = pos.dtype == torch.bfloat16
+    if bf16 and (batch % ROW_TILE or pos.data_ptr() % 16
+                 or neg.data_ptr() % 16):
+        raise ValueError(f"fused_block_train_wide: kernel B's bf16 route "
+                         f"needs batch % {ROW_TILE} == 0 (batch={batch}) "
+                         f"and 16-byte aligned pos/neg")
     dev = _cuda_args("fused_block_train_wide", pos, neg, w, df_avg, mu, gamma)
     w_res = w.to(pos.dtype).contiguous().clone()
     df = df_avg.to(torch.float32).contiguous().clone()
     mu_c = mu.to(torch.float32).contiguous()
     ga_c = gamma.to(torch.float32).contiguous()
     offs_d = offs.contiguous().to(dev)
-    s_pad = -(-s_dim // 64) * 64
-    viol = torch.empty((s_pad, batch), dtype=torch.bfloat16, device=dev)
+    viol, fd, part = wide_scratch(batch, f_dim, s_dim, dev)
     lib = cuda_build.load("rda_wide")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -147,7 +186,9 @@ def fused_block_train_wide(pos, neg, w, df_avg, t, mu, gamma, offs, *,
             _DTYPES[pos.dtype], pos.data_ptr(), neg.data_ptr(),
             w_res.data_ptr(), df.data_ptr(), mu_c.data_ptr(),
             ga_c.data_ptr(), offs_d.data_ptr(), viol.data_ptr(),
-            offs.shape[0], int(t), batch, tile_b, f_dim, s_dim, stream)
+            fd.data_ptr(), part.data_ptr(), offs.shape[0], int(t), batch,
+            tile_b, f_dim, s_dim, pos.shape[0], neg.shape[0], part.shape[0],
+            stream)
     cuda_build.check(rc, "fused_block_train_wide")
     fused_block_train_wide.launches += 1
     t_new = t + batch * offs.shape[0]

@@ -2,10 +2,12 @@
 
 Port of ``opencv_dlco_tpu/ops/pair_distance_pallas.py::ring_distances_fused``.
 On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/ring_dist.cu`` (tensor-core products, truncation, squared
+``csrc/ring_dist.cu`` (wgmma products fed by TMA, truncation, squared
 difference and ring reduction fused; the pooled descriptors never reach
 device memory); on a CPU tensor it runs ``ring_distances_plain``, the same
-function in plain PyTorch. Bound and design: see the kernel source.
+function in plain PyTorch. The wrapper's host-side layout (pairs padded to
+the pair tile, one pair's 8 channels as 8 pixel-contiguous rows) is
+``pair_columns``. Bound and design: see the kernel source.
 """
 
 from __future__ import annotations
@@ -16,9 +18,21 @@ from . import cuda_build
 
 N_SYM = 8   # symmetric offsets per ring
 N_CH = 8    # angle channels
-TF = 64     # filters per CTA (the filter count must be a multiple)
+TF = 128    # filters per CTA (the filter count must be a multiple)
 TP = 16     # pairs per CTA (pairs are zero-padded to a multiple)
-TK = 64     # pixels per step (the pixel count must be a multiple)
+TK = 64     # pixels per stage (the pixel count must be a multiple)
+
+
+def pair_columns(pt: torch.Tensor) -> torch.Tensor:
+    """The kernel's column operand of one side: (B, n_pixels, 8) ->
+    (B_pad, 8, n_pixels) bf16, B padded with zero pairs to a multiple of
+    TP. Row 8 * p + c is pair p's channel c, contiguous in pixels (the
+    K-major layout the tensor-map tiles load)."""
+    b, npix, nch = pt.shape
+    cols = torch.zeros((b + (-b) % TP, nch, npix), dtype=torch.bfloat16,
+                       device=pt.device)
+    cols[:b] = pt.transpose(1, 2)
+    return cols
 
 
 def ring_distances_plain(filters: torch.Tensor, pt1: torch.Tensor,
@@ -43,7 +57,7 @@ def ring_distances_fused(filters: torch.Tensor, pt1: torch.Tensor,
                          ) -> torch.Tensor:
     """Fused equivalent of ops.pair_distance.ring_distances.
 
-    filters: (n_filters, n_pixels), ring-major, n_filters % 64 == 0 and
+    filters: (n_filters, n_pixels), ring-major, n_filters % 128 == 0 and
     n_pixels % 64 == 0 (pass it as bf16 to skip the per-call cast);
     pt1/pt2: (B, n_pixels, 8). Returns (B, n_filters // 8) float32.
     The CUDA kernel takes bf16 inputs only (``bf16=True``).
@@ -67,13 +81,12 @@ def ring_distances_fused(filters: torch.Tensor, pt1: torch.Tensor,
     if pt1.device != dev or pt2.device != dev:
         raise ValueError("filters, pt1 and pt2 must be on one device")
     f16 = filters.to(torch.bfloat16).contiguous()
-    bp = b + (-b) % TP
-    # (B, npix, 8) -> (B_pad, 8, npix) bf16: one pair's 8 channels are one
-    # mma n8 fragment, each channel row contiguous in pixels
-    p1 = torch.zeros((bp, N_CH, npix), dtype=torch.bfloat16, device=dev)
-    p2 = torch.zeros_like(p1)
-    p1[:b] = pt1.transpose(1, 2)
-    p2[:b] = pt2.transpose(1, 2)
+    if f16.data_ptr() % 16:
+        raise ValueError("ring_distances_fused: the bank must be 16-byte "
+                         "aligned (tensor-map tiles)")
+    # one pair's 8 channels are one n8 slice of the wgmma accumulator
+    p1, p2 = pair_columns(pt1), pair_columns(pt2)
+    bp = p1.shape[0]
     out = torch.empty((b, nf // N_SYM), dtype=torch.float32, device=dev)
     lib = cuda_build.load("ring_dist")
     with torch.cuda.device(dev):

@@ -56,8 +56,33 @@ def test_kernel_a_matches_plain(dev):
                                rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("nf,n_pairs", [(1024, 37), (2560, 45), (1152, 19)])
+def test_kernel_a_matches_plain_on_ragged_tiles(dev, nf, n_pairs):
+    """Pair counts that are not a multiple of the 16-pair tile, at the small
+    bank (8 filter tiles), at 20 filter tiles (one full raster group of 16
+    and a partial one of 4) and at 9 (one partial group)."""
+    rng = np.random.default_rng(nf + n_pairs)
+    if nf == 1024:
+        _, _, bank = build_filter_bank(PoolRegionConfig(nr=16, nphi=2,
+                                                        nsigma=4))
+    else:  # ring-like rows: nonnegative weights that sum to ~1
+        bank = rng.random((nf, 4096)).astype(np.float32) * (2.0 / 4096)
+    patches = torch.from_numpy(rng.integers(0, 256, (2 * n_pairs, 64, 64),
+                                            dtype=np.uint8)).to(dev)
+    pt = batch_patch_transform(patches)
+    f = torch.from_numpy(bank).to(dev)
+    before = ring_distances_fused.launches
+    out = ring_distances_fused(f, pt[:n_pairs], pt[n_pairs:], bf16=True)
+    assert ring_distances_fused.launches == before + 1
+    ref = ring_distances_plain(f, pt[:n_pairs], pt[n_pairs:], bf16=True)
+    torch.cuda.synchronize()
+    assert out.shape == (n_pairs, nf // 8)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s_dim", [16, 80])
+@pytest.mark.parametrize("s_dim", [16, 80, 300])
 def test_kernel_b_matches_plain(dev, dtype, s_dim):
     pos, neg = _splits(dev, dtype)
     mu = torch.linspace(0.005, 0.08, s_dim, device=dev)
@@ -72,6 +97,59 @@ def test_kernel_b_matches_plain(dev, dtype, s_dim):
     torch.cuda.synchronize()
     np.testing.assert_allclose((df * t).cpu().numpy(),
                                (df_r * t).cpu().numpy(), **BF16)
+
+
+@pytest.mark.parametrize("batch,tile_b", [(384, 128), (512, 256), (256, 64)])
+def test_kernel_b_bf16_matches_plain_at_other_blockings(dev, batch, tile_b):
+    """The bf16 route with an odd number of tile_b blocks and with other
+    tile_b than the solver's 128 (one block at a time in phase 2)."""
+    pos, neg = _splits(dev, torch.bfloat16, seed=8)
+    mu = torch.linspace(0.005, 0.08, 80, device=dev)
+    gamma = torch.linspace(0.02, 0.5, 80, device=dev)
+    w0 = torch.zeros((80, 384), device=dev)
+    offs = fr.draw_block_offsets(torch.Generator().manual_seed(tile_b), 4,
+                                 1024, 1024, batch, tile_b)
+    _, df, t = fr.fused_block_train_wide(pos, neg, w0, w0, 0, mu, gamma, offs,
+                                         batch=batch, tile_b=tile_b)
+    _, df_r, _ = fr.fused_block_train_wide_plain(pos, neg, w0, w0, 0, mu,
+                                                 gamma, offs, batch=batch,
+                                                 tile_b=tile_b)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose((df * t).cpu().numpy(),
+                               (df_r * t).cpu().numpy(), **BF16)
+
+
+def _production_b(dev, n_steps, seed):
+    """Kernel B at the PR grid's shape: S 256, F 5120, batch 2048, bf16."""
+    pos, neg = _splits(dev, torch.bfloat16, n=6144, f=5120, seed=seed)
+    s_dim = 256
+    mu = torch.linspace(0.005, 0.08, s_dim, device=dev)
+    gamma = torch.linspace(0.02, 0.5, s_dim, device=dev)
+    w0 = torch.zeros((s_dim, 5120), device=dev)
+    offs = fr.draw_block_offsets(torch.Generator().manual_seed(seed),
+                                 n_steps, 6144, 6144, 2048, 128)
+    return (pos, neg, w0, w0, 0, mu, gamma, offs)
+
+
+def test_kernel_b_matches_plain_at_production_shape(dev):
+    args = _production_b(dev, 4, seed=5)
+    w, df, t = fr.fused_block_train_wide(*args, batch=2048)
+    _, df_r, _ = fr.fused_block_train_wide_plain(*args, batch=2048)
+    torch.cuda.synchronize()
+    assert t == 4 * 2048
+    np.testing.assert_allclose((df * t).cpu().numpy(),
+                               (df_r * t).cpu().numpy(), **BF16)
+
+
+def test_kernel_b_reruns_bit_identical(dev):
+    """No atomics and a fixed summation order: the same inputs give the
+    same df bit for bit (the sweep's ckpt_every resume identity)."""
+    args = _production_b(dev, 3, seed=6)
+    _, df1, _ = fr.fused_block_train_wide(*args, batch=2048)
+    _, df2, _ = fr.fused_block_train_wide(*args, batch=2048)
+    torch.cuda.synchronize()
+    assert torch.equal(df1, df2)
+    assert bool(df1.any())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -103,10 +181,17 @@ def test_wrappers_raise_on_shapes_the_kernels_cannot_take(dev):
     with pytest.raises(ValueError):
         fr.fused_block_train_wide(pos, neg, w, w, 0, mu, mu, [[0, 0]],
                                   batch=256)
+    pos16, neg16 = _splits(dev, torch.bfloat16)
+    w16 = torch.zeros((16, 384), device=dev)
+    with pytest.raises(ValueError):  # bf16 route: batch % 128 != 0
+        fr.fused_block_train_wide(pos16, neg16, w16, w16, 0, mu, mu,
+                                  [[0, 0]], batch=192, tile_b=64)
     f = torch.zeros((1024, 4096), device=dev)
     pt = torch.zeros((2, 4096, 8), device=dev)
     with pytest.raises(NotImplementedError):
         ring_distances_fused(f, pt, pt, bf16=False)
+    with pytest.raises(ValueError):  # a multiple of 64 filters, not of 128
+        ring_distances_fused(f[:192], pt, pt, bf16=True)
 
 
 @pytest.mark.parametrize("n_pos,n_neg", [(50_000, 50_000), (700, 2500),

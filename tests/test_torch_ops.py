@@ -31,6 +31,9 @@ from opencv_dlco_tpu_torch.models.select import (
 from opencv_dlco_tpu_torch.ops.hinge import hinge_sum_sorted
 from opencv_dlco_tpu_torch.ops.pair_distance import ring_distances
 from opencv_dlco_tpu_torch.ops.pair_distance_fused import (
+    TF,
+    TP,
+    pair_columns,
     ring_distances_fused,
     ring_distances_plain,
 )
@@ -124,6 +127,59 @@ def test_kernel_a_rejects_bad_shapes(bank, transforms):
     with pytest.raises(ValueError):
         ring_distances_fused(torch.from_numpy(bank), pt, pt[:, :100],
                              bf16=True)
+    with pytest.raises(ValueError):  # a multiple of 64, not of the tile
+        ring_distances_fused(torch.from_numpy(bank[:TF + 64]), pt, pt,
+                             bf16=True)
+
+
+@pytest.mark.parametrize("n_pairs", [1, TP, TP + 1])
+def test_pair_columns_pad_to_the_pair_tile(transforms, n_pairs):
+    """Kernel A's column operand: pairs zero-padded to a multiple of TP,
+    row 8 * p + c = pair p's channel c, bf16, contiguous in pixels."""
+    pt = torch.from_numpy(np.concatenate([transforms[0]] * 3)[:n_pairs])
+    cols = pair_columns(pt)
+    n_pad = -(-n_pairs // TP) * TP
+    assert cols.shape == (n_pad, 8, 4096) and cols.dtype == torch.bfloat16
+    assert cols.is_contiguous()
+    assert torch.equal(cols[:n_pairs], pt.transpose(1, 2).to(torch.bfloat16))
+    assert not bool(cols[n_pairs:].any())
+
+
+def _kernel_a_tiled(bank, pt1, pt2):
+    """Kernel A's dataflow in plain PyTorch: (TF filters) x (TP pairs, both
+    sides as one 2 x TP x 8-column operand) tiles of bf16 products with f32
+    accumulation, then the epilogue per tile: truncate, square the side
+    difference, sum 8 channels and each ring's 8 rows."""
+    f = torch.from_numpy(bank).to(torch.bfloat16).float()
+    c1, c2 = pair_columns(pt1), pair_columns(pt2)
+    n_pad, _, npix = c1.shape
+    out = torch.zeros((n_pad, f.shape[0] // 8))
+    for f0 in range(0, f.shape[0], TF):
+        for p0 in range(0, n_pad, TP):
+            b = torch.cat([c1[p0:p0 + TP].reshape(-1, npix),
+                           c2[p0:p0 + TP].reshape(-1, npix)]).float()
+            acc = f[f0:f0 + TF] @ b.T                      # (TF, 2 * TP * 8)
+            d = (torch.clamp(acc[:, TP * 8:], max=1.0)
+                 - torch.clamp(acc[:, :TP * 8], max=1.0))
+            e = (d * d).reshape(TF // 8, 8, TP, 8).sum(dim=(1, 3))
+            out[p0:p0 + TP, f0 // 8:(f0 + TF) // 8] = e.T
+    return out[:pt1.shape[0]]
+
+
+def test_kernel_a_tiled_emulation_matches_plain_and_pallas(bank, transforms):
+    """The tiled emulation of kernel A (a pair count that is not a
+    multiple of TP, 8 filter tiles) against its plain version and the
+    Pallas kernel in interpret mode, at kernel A's tolerance."""
+    _, ref_pt = transforms
+    pt1, pt2 = ref_pt[:5], ref_pt[6:11]
+    ours = _kernel_a_tiled(bank, torch.from_numpy(pt1),
+                           torch.from_numpy(pt2)).numpy()
+    plain = ring_distances_plain(torch.from_numpy(bank), torch.from_numpy(pt1),
+                                 torch.from_numpy(pt2), bf16=True).numpy()
+    ref = np.asarray(jax_fused(jnp.asarray(bank), jnp.asarray(pt1),
+                               jnp.asarray(pt2), interpret=True, bf16=True))
+    np.testing.assert_allclose(ours, plain, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("shape", [(701, 1203), (3, 50)])

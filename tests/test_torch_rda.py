@@ -20,11 +20,13 @@ from opencv_dlco_tpu.ops import fused_rda as jax_fused
 
 import opencv_dlco_tpu_torch.models.pj_rda as port_pj
 import opencv_dlco_tpu_torch.models.pr_rda as port_pr
+from opencv_dlco_tpu_torch.ops import fused_rda as port_fused
 from opencv_dlco_tpu_torch.ops.fused_rda import (
     draw_block_offsets,
     fused_block_grad,
     fused_block_train,
     fused_block_train_wide,
+    fused_block_train_wide_plain,
 )
 
 # tolerances of the JAX suite (tests/test_fused_rda.py)
@@ -199,6 +201,74 @@ def test_kernel_b_plain_matches_pallas_bf16():
                                       batch=256, tile_b=128)
     np.testing.assert_allclose(df.numpy() * t, np.asarray(df_j) * t, **BF16)
     np.testing.assert_allclose(w.numpy(), np.asarray(w_j), **BF16)
+
+
+@pytest.mark.parametrize("f_dim", [64, 384, 640, 5120])
+def test_kernel_b_k_slices_partition_f(f_dim):
+    """The bf16 route's split of F over phase-1 CTAs: whole 64-wide tiles,
+    in order, covering F once, at most 8 slices, sizes within one tile."""
+    sl = port_fused.k_slices(f_dim)
+    assert len(sl) == min(8, f_dim // 64)
+    assert sl[0][0] == 0 and sl[-1][1] == f_dim
+    assert all(a[1] == b[0] for a, b in zip(sl, sl[1:]))
+    sizes = [f1 - f0 for f0, f1 in sl]
+    assert all(x % 64 == 0 and x > 0 for x in sizes)
+    assert max(sizes) - min(sizes) <= 64
+
+
+def test_kernel_b_scratch_shapes():
+    viol, fd, part = port_fused.wide_scratch(256, 640, 300, "cpu")
+    assert viol.shape == (384, 256) and viol.dtype == torch.bfloat16
+    assert fd.shape == (256, 640) and fd.dtype == torch.bfloat16
+    assert part.shape == (8, 256, 512) and part.dtype == torch.float32
+
+
+def _kernel_b_bf16_route(pos, neg, w, df_avg, t, mu, gamma, offs, batch,
+                         tile_b):
+    """Kernel B's bf16 dataflow in plain PyTorch: per step fd rounded once
+    to bf16 (the scratch), partial f per F slice (k_slices), summed in slice
+    order, the f > -1 gate, then df scaled by t/(t+B) and folded every
+    tile_b rows in row order, and w rounded to bf16 at the step's end."""
+    w_res = w.to(torch.bfloat16)
+    df = df_avg.clone()
+    slices = port_fused.k_slices(pos.shape[1])
+    for step, (ip, ineg) in enumerate(offs.tolist()):
+        tf, tnf = port_fused._step_times(t, step, batch)
+        fd = (pos[ip * tile_b:ip * tile_b + batch].float()
+              - neg[ineg * tile_b:ineg * tile_b + batch].float()
+              ).to(torch.bfloat16).float()
+        f = torch.zeros((batch, w.shape[0]))
+        for f0, f1 in slices:
+            f = f + fd[:, f0:f1] @ w_res[:, f0:f1].float().T
+        viol = (f > -1.0).float()
+        df = df * (tf / tnf)
+        for r in range(0, batch, tile_b):
+            df = df + (viol[r:r + tile_b].T @ fd[r:r + tile_b]) / tnf
+        w_res = torch.clamp(-torch.sqrt(tnf) / gamma[:, None]
+                            * (df + mu[:, None]), min=0.0).to(torch.bfloat16)
+    return df
+
+
+def test_kernel_b_bf16_route_emulation_matches_plain_and_jax():
+    """The emulated bf16 route (F 640 in 8 uneven slices, S 20) against
+    kernel B's plain version and the JAX kernel in interpret mode: df * t
+    within the JAX suite's bf16 subgradient tolerance."""
+    pos, neg = _splits(19, f=640)
+    s_dim = 20
+    mu, gamma = _grid(s_dim)
+    w0 = np.zeros((s_dim, 640), np.float32)
+    key = jax.random.PRNGKey(23)
+    _, df_j, t_j = jax_fused.fused_block_train_wide(
+        _j(pos, True), _j(neg, True), _j(w0), _j(w0), jnp.int32(0), _j(mu),
+        _j(gamma), key, batch=256, n_steps=3, tile_b=128, interpret=True)
+    offs = jax_offsets(key, 3, 1024, 1024, 256, 128)
+    args = (_t(pos, True), _t(neg, True), _t(w0), _t(w0), 0, _t(mu),
+            _t(gamma), offs)
+    df = _kernel_b_bf16_route(*args, batch=256, tile_b=128)
+    _, df_p, t = fused_block_train_wide_plain(*args, batch=256, tile_b=128)
+    assert t == int(t_j) == 3 * 256
+    np.testing.assert_allclose(df.numpy() * t, df_p.numpy() * t, **BF16)
+    np.testing.assert_allclose(df.numpy() * t, np.asarray(df_j) * t, **BF16)
 
 
 def test_block_offsets_distribution():
