@@ -30,13 +30,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kf_min_translation=2.5, kf_min_rotation=0.05, loop_gap=10) and the
    64-D header stage 11 just exported, through compute_features ->
    run_odometry -> run_back_end (bench_slam's calls), once counted (after
-   a timed first forward-mode Jacobian, PyTorch's one-time set-up), once
-   more for steady-state seconds and once under torch.profiler for the
-   device's busy time and kernel launches. Counts are set to 0 just
-   before and read just after; the run fails if kernel G did not launch
-   there, if any pose is non-finite, or if a repeat of the first pose
-   chunk's G call on its own recorded inputs (masked rows included)
-   disagrees with G's plain version.
+   a timed first forward-mode Jacobian, PyTorch's one-time set-up) and,
+   after phase 6, once more for steady-state seconds and once under
+   torch.profiler for the device's busy time and kernel launches, with
+   each run's ATE/span and a hash of each of its G outputs. Counts are set
+   to 0 just before and read just after the counted run; the run fails if
+   kernel G did not launch there, if any pose is non-finite, or if a
+   repeat of any pose chunk's G call on its own recorded inputs (masked
+   rows included) disagrees with G's plain version.
 5. Checks the outputs: distance matrix shape, finiteness and separation,
    the first 64 rows against the f32 route, a finite sweep, saved
    histories, a ranked row; finite diffs and PJ models, four exports that
@@ -48,18 +49,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    48 steps of the PR grid with each of its three kernels' device time a
    step from torch.profiler, E, F, H at the benchmark's shapes, F and H also at
    the 120-D export's width and at widths past one D chunk, G on the SLAM
-   pose chunk's recorded inputs) and times
+   pose chunks' recorded inputs, also bit for bit against csrc/knn.cu's
+   batched route, which G ran on before knn_batched.cu) and times
    kernel, plain version, one library call computing the same products or
    function where there is one (``library_ms``, a yardstick the port never
    calls), and the bound (bytes or operations over the card's peaks);
    then A's and B's device time inside 03_compdist and 04_prsweep
-   (main-path launches x the per-call time) beside the stage seconds.
+   (main-path launches x the per-call time) beside the stage seconds; F's
+   and H's (d 64) and G's (the SLAM chunk) device time and kernel launches
+   per call, and their library calls', come from torch.profiler.
 7. Prints one JSON line with every kernel, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line. Any failed phase
    exits non-zero without that line.
 """
 
 import contextlib
+import hashlib
 import json
 import os
 import re
@@ -156,7 +161,8 @@ def check_close(name, got, ref, tol):
 def _kernel_name(mangled):
     """The plain name of a kernel from its mangled symbol: the last name of
     a nested one (_ZN <len><name>... E, e.g. inside the anonymous
-    namespace), or the name of one at file scope (_Z<len><name>)."""
+    namespace), or the name of one at file scope (_Z<len><name>), with its
+    integer and bool template arguments (I Li10E Lb0E E -> <10, 0>)."""
     m = re.match(r"_ZN", mangled)
     pos, name = (3, mangled) if m else (2, mangled)
     while pos < len(mangled) and mangled[pos].isdigit():
@@ -165,6 +171,10 @@ def _kernel_name(mangled):
         pos += len(n) + int(n)
         if not m:
             break
+    targs = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    if targs:
+        name += "<" + ", ".join(re.findall(r"L[ib](\d+)E",
+                                           targs.group(1))) + ">"
     return name
 
 
@@ -194,13 +204,50 @@ def ptxas_summary(cuda_build):
             if "Performance Loss" in line:
                 lines.append(f"  ptxas[{lib}] note: {line.strip()}")
     libs = {"ring_dist": [("ring_dist_wgmma", 0)],
-            "rda_wide": [("wide_f_wgmma", 1), ("wide_df_wgmma", 2)]}
+            "rda_wide": [("wide_f_wgmma", 1), ("wide_df_wgmma", 2)],
+            # kernel H at d 64, d 608 (the widest row the smoke checks) and
+            # d 1408 (queries streamed), kernel G at any width
+            "knn_topk": [("knnk_wgmma (d 64)", 64),
+                         ("knnk_wgmma (d 608)", 608),
+                         ("knnk_wgmma (d 1408)", 1408)],
+            "knn_batched": [("knn2_batched", 0)]}
     for lib, kernels in libs.items():
         fn = getattr(cuda_build.load(lib), f"{lib}_smem_bytes")
         for kernel, which in kernels:
             lines.append(f"  dynamic smem[{lib}] {kernel}: {fn(which)} bytes "
                          f"a CTA")
     return lines
+
+
+def profile_calls(torch, fn, calls):
+    """torch.profiler's device time (us) and kernel launches per call of
+    ``fn`` over ``calls`` calls after a warm-up, in all and by kernel;
+    "not measured" when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            # "void (anonymous namespace)::knnk_wgmma<10, 3>(CUtensorMap,
+            # ...)" -> "knnk_wgmma<10, 3>"
+            m = re.search(r"(\w+(<[^()]*>)?)\(", e.key)
+            kernels[m.group(1) if m else e.key[:60]] = {
+                "launches": e.count / calls,
+                "us": e.self_device_time_total / calls}
+    if not kernels:
+        return {"device_us_per_call": "not measured",
+                "launches_per_call": "not measured"}
+    return {"device_us_per_call": sum(v["us"] for v in kernels.values()),
+            "launches_per_call": sum(v["launches"]
+                                     for v in kernels.values()),
+            "kernels": kernels}
 
 
 def kernel_shares(secs, launches, res):
@@ -714,8 +761,10 @@ def hold_knn(torch, name, q, t, k, got, bf16):
         f"{rt:.5f}, agreeing distances within 1e-3 rel + 1e-5 (|q|^2+|t|^2)")
 
 
-def knn_row(torch, name, fn, k, n, d, bf16, seed):
-    """One kernel-vs-plain check of F or H with its times and bound."""
+def knn_row(torch, name, fn, k, n, d, bf16, seed, profile=False):
+    """One kernel-vs-plain check of F or H with its times and bound; with
+    ``profile``, the kernel's and the library call's device time and
+    launches per call from torch.profiler."""
     from opencv_dlco_tpu_torch.ops.knn_fused import knn_plain
 
     # f32 mode on unit-norm descriptors: one f32 rounding of
@@ -737,6 +786,10 @@ def knn_row(torch, name, fn, k, n, d, bf16, seed):
         library_ms=time_ms(torch, lambda: torch.matmul(qc, tc.T), 5),
         shape=f"{n} x {n}, d {d}, k {k}, {'bf16' if bf16 else 'f32'}",
         tolerance=tol)
+    if profile:
+        row["profiler"] = profile_calls(torch, lambda: fn(q, t, bf16=bf16), 3)
+        row["profiler"]["library"] = profile_calls(
+            torch, lambda: torch.matmul(qc, tc.T), 3)
     del q, t, qc, tc
     torch.cuda.empty_cache()
     return row
@@ -785,24 +838,29 @@ def kernel_checks_2(torch):
     def knnk10(q, t, bf16):
         return knnk_fused(q, t, 10, bf16=bf16)
 
-    for key, name, fn, k, line in (
-            ("F", "knn2_fused", knn2_fused, 2, 69),
-            ("H", "knnk_fused", knnk10, 10, 110)):
+    # F runs csrc/knn.cu; H runs csrc/knn_topk.cu in bf16 and csrc/knn.cu
+    # in f32
+    for key, name, fn, k, line, src16 in (
+            ("F", "knn2_fused", knn2_fused, 2, 69, "knn.cu"),
+            ("H", "knnk_fused", knnk10, 10, 110, "knn_topk.cu")):
         base = dict(name=name, route="cuda",
-                    source="opencv_dlco_tpu_torch/csrc/knn.cu",
                     replaces=f"opencv_dlco_tpu/ops/knn_pallas.py:{line}")
+        b16 = dict(base, source=f"opencv_dlco_tpu_torch/csrc/{src16}")
+        b32 = dict(base, source="opencv_dlco_tpu_torch/csrc/knn.cu")
         for d in (64, 128):
-            results[f"{key}{d}"] = dict(base, **knn_row(
-                torch, f"{key}[d={d}]", fn, k, KNN_N, d, True, seed=d + k))
-        results[f"{key}f32"] = dict(base, **knn_row(
+            results[f"{key}{d}"] = dict(b16, **knn_row(
+                torch, f"{key}[d={d}]", fn, k, KNN_N, d, True, seed=d + k,
+                profile=d == 64))
+        results[f"{key}f32"] = dict(b32, **knn_row(
             torch, f"{key}[f32]", fn, k, KNN_F32_N, 64, False, seed=k))
         # the 120-D export's width (padded to 128 in bf16 mode) and widths
-        # past one D chunk (bf16 600 -> 608 in 3 chunks, f32 576 in 5)
-        results[f"{key}120"] = dict(base, **knn_row(
+        # past one D chunk (bf16 600 -> 608: F 3 chunks of 256, H 10 of 64;
+        # f32 576 in 5 chunks of 128)
+        results[f"{key}120"] = dict(b16, **knn_row(
             torch, f"{key}[d=120]", fn, k, KNN_WIDE_N, 120, True, seed=k))
-        results[f"{key}600"] = dict(base, **knn_row(
+        results[f"{key}600"] = dict(b16, **knn_row(
             torch, f"{key}[d=600]", fn, k, KNN_F32_N, 600, True, seed=k))
-        results[f"{key}f32_576"] = dict(base, **knn_row(
+        results[f"{key}f32_576"] = dict(b32, **knn_row(
             torch, f"{key}[f32, d=576]", fn, k, KNN_F32_N, 576, False,
             seed=k))
     return results
@@ -812,18 +870,27 @@ SLAM_FRAMES = 48                   # the SLAM bench row (bench_slam)
 SLAM_SIZE = 256
 
 
+def ate_over_span(np, translations, centers_gt):
+    """ATE RMSE of a trajectory over the ground truth's span."""
+    from opencv_dlco_tpu_torch.pipeline.slam import ate_rmse
+
+    span = float(np.linalg.norm(centers_gt.max(0) - centers_gt.min(0)))
+    return ate_rmse(translations, centers_gt) / span
+
+
 def run_slam_path(torch, np, header_path, record):
     """SLAM at the bench row through the entry points bench_slam calls;
-    ``record`` wraps kernel G's call site in the pose chunk. Returns facts
-    and the per-stage seconds."""
+    ``record`` wraps kernel G's call site in the pose chunk. Returns facts,
+    the per-stage seconds and the inputs of a rerun."""
     from opencv_dlco_tpu_torch.data.synthetic import render_blob_sequence
     from opencv_dlco_tpu_torch.models.vgg import VGGDescriptor
     from opencv_dlco_tpu_torch.pipeline import slam
     from opencv_dlco_tpu_torch.pipeline.slam import (
-        SlamConfig, ate_rmse, compute_features, run_back_end, run_odometry)
+        SlamConfig, compute_features, run_back_end, run_odometry)
 
     with open(header_path) as fh:
-        model = VGGDescriptor.from_header(fh.read(), device="cuda")
+        header = fh.read()
+    model = VGGDescriptor.from_header(header, device="cuda")
     frames, centers_gt, intr = render_blob_sequence(
         np.random.default_rng(2215), SLAM_FRAMES, size=SLAM_SIZE)
     cfg = SlamConfig(n_keypoints=256, kf_min_translation=2.5,
@@ -841,7 +908,6 @@ def run_slam_path(torch, np, header_path, record):
                         cfg, loop_stats=stats)
     finally:
         slam.knn2_fused_batched = inner
-    span = float(np.linalg.norm(centers_gt.max(0) - centers_gt.min(0)))
     for name, res in (("odometry", odo), ("refined", refined)):
         if not (np.isfinite(res.rotations).all()
                 and np.isfinite(res.translations).all()):
@@ -852,6 +918,7 @@ def run_slam_path(torch, np, header_path, record):
     front = secs["slam_features"] + secs["slam_odometry"]
     full = front + secs["slam_back_end"]
     return dict(
+        header_sha1=hashlib.sha1(header.encode()).hexdigest()[:12],
         n_frames=SLAM_FRAMES, size=SLAM_SIZE, n_keypoints=cfg.n_keypoints,
         front_end_fps=SLAM_FRAMES / front, full_stack_fps=SLAM_FRAMES / full,
         n_keyframes=int(refined.keyframes.shape[0]),
@@ -860,12 +927,13 @@ def run_slam_path(torch, np, header_path, record):
         loop_stats=stats,
         backbone_stride=(int(np.median(np.diff(odo.nodes)))
                          if odo.nodes is not None else 1),
-        ate_over_span_odometry=ate_rmse(odo.translations, centers_gt) / span,
-        ate_over_span=ate_rmse(refined.translations, centers_gt) / span,
+        ate_over_span_odometry=ate_over_span(np, odo.translations,
+                                             centers_gt),
+        ate_over_span=ate_over_span(np, refined.translations, centers_gt),
         valid_keypoints_mean=float(np.mean([f[2].sum() for f in feats])),
         matches_mean=float(np.mean([p.n_matches for p in odo.pairs])),
         inliers_mean=float(np.mean([p.n_inliers for p in odo.pairs]))), \
-        secs, (frames, intr, model, cfg)
+        secs, (frames, intr, model, cfg, centers_gt)
 
 
 def first_forward_ad_seconds(torch):
@@ -882,30 +950,42 @@ def first_forward_ad_seconds(torch):
     return time.perf_counter() - t0
 
 
-def rerun_slam_path(torch, inputs):
+def rerun_slam_path(torch, np, inputs, recorder):
     """bench_slam's steady-state figure: the same calls once more, timed;
     then once more under torch.profiler for the device's busy time and the
-    kernel launches (idle share = 1 - busy / the timed run's wall)."""
+    kernel launches (idle share = 1 - busy / the timed run's wall). Each
+    run's ATE/span (odometry, refined); ``recorder(run)`` wraps G's call
+    site in run "steady" and "profiled"."""
     from torch.autograd import DeviceType
+    from opencv_dlco_tpu_torch.pipeline import slam
     from opencv_dlco_tpu_torch.pipeline.slam import (
         compute_features, run_back_end, run_odometry)
 
-    frames, intr, model, cfg = inputs
+    frames, intr, model, cfg, centers_gt = inputs
+    inner = slam.knn2_fused_batched
 
-    def run(timed):
-        feats = timed("slam_features", compute_features, frames, model, cfg)
-        odo = timed("slam_odometry", run_odometry, frames, intr, model, cfg,
-                    feats=feats)
-        timed("slam_back_end", run_back_end, odo, feats, intr, cfg)
+    def run(timed, name):
+        slam.knn2_fused_batched = recorder(name)(inner)
+        try:
+            feats = timed("slam_features", compute_features, frames, model,
+                          cfg)
+            odo = timed("slam_odometry", run_odometry, frames, intr, model,
+                        cfg, feats=feats)
+            refined = timed("slam_back_end", run_back_end, odo, feats, intr,
+                            cfg)
+        finally:
+            slam.knn2_fused_batched = inner
+        return [ate_over_span(np, r.translations, centers_gt)
+                for r in (odo, refined)]
 
     secs = {}
-    run(timer(torch, secs))
+    ate = {"steady": run(timer(torch, secs), "steady")}
     front = secs["slam_features"] + secs["slam_odometry"]
     wall = front + secs["slam_back_end"]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        run(timer(torch, {}))
+        ate["profiled"] = run(timer(torch, {}), "profiled")
     events = prof.key_averages()
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
@@ -915,6 +995,7 @@ def rerun_slam_path(torch, inputs):
                                 "cuLaunchKernel", "cuLaunchKernelEx"))
     return dict(secs, front_end_fps=SLAM_FRAMES / front,
                 full_stack_fps=SLAM_FRAMES / wall,
+                ate_over_span_odometry_refined=ate,
                 device_busy_ms=busy_ms if kernels else "not measured",
                 device_idle_share=(1.0 - busy_ms / 1e3 / wall if kernels
                                    else "not measured"),
@@ -929,7 +1010,8 @@ def hold_g(torch, name, q, t, got):
     kernel's pick has the plain list's distance within the tolerance;
     distances within 1e-5 relative plus 8 f32 epsilons of |q|^2 + |t|^2
     (the magnitude the expanded form cancels; 1e6-masked rows make it
-    ~6e13). Returns (max abs err, max rel err, the tolerance met)."""
+    ~6e13). Returns (max abs err, max rel err, the tolerance met, the
+    near-tie swaps)."""
     from opencv_dlco_tpu_torch.ops.knn_fused import knn_plain
 
     dk, ik = got
@@ -964,7 +1046,8 @@ def hold_g(torch, name, q, t, got):
     rel = float((err / dp.double().abs().clamp(min=1e-30)).max())
     return float(err.max()), rel, (
         f"indices identical except {int(diff.sum())} near-tie swaps of "
-        f"{ik.numel()}; distances 1e-5 rel + 8 eps (|q|^2+|t|^2)")
+        f"{ik.numel()}; distances 1e-5 rel + 8 eps (|q|^2+|t|^2)"), \
+        int(diff.sum())
 
 
 def g_row(torch, name, q, t, what):
@@ -975,29 +1058,70 @@ def g_row(torch, name, q, t, what):
 
     c, n, d = q.shape
     m = t.shape[1]
-    err, rel, tol = hold_g(torch, name, q, t, knn2_fused_batched(q, t))
+    err, rel, tol, _ = hold_g(torch, name, q, t, knn2_fused_batched(q, t))
     bnd, by = bound_ms((c * n * d + c * m * d) * 4 + c * n * 2 * 8,
                        2 * c * n * m * d, "f32", f32_instr=4 * c * n * m)
     tt = t.transpose(1, 2).contiguous()
+    prof = profile_calls(torch, lambda: knn2_fused_batched(q, t), 20)
+    prof["library"] = profile_calls(torch, lambda: torch.bmm(q, tt), 20)
     return dict(
         name="knn2_fused_batched", route="cuda",
-        source="opencv_dlco_tpu_torch/csrc/knn.cu",
+        source="opencv_dlco_tpu_torch/csrc/knn_batched.cu",
         replaces="opencv_dlco_tpu/ops/knn_pallas.py:69",
         max_abs_err=err, max_rel_err=rel,
         ms=time_ms(torch, lambda: knn2_fused_batched(q, t), 20),
         plain_ms=time_ms(torch, lambda: knn_plain(q, t, 2, bf16=False), 5),
         bound_ms=bnd, bound_by=by,
         library_ms=time_ms(torch, lambda: torch.bmm(q, tt), 20),
-        shape=f"{c} x {n} x {m}, d {d}, k 2, f32 ({what})", tolerance=tol)
+        shape=f"{c} x {n} x {m}, d {d}, k 2, f32 ({what})", tolerance=tol,
+        profiler=prof)
 
 
-def kernel_checks_3(torch, chunk):
-    """G on the SLAM pose chunk's recorded inputs (the first chunk of the
-    counted run, at the exported descriptor's width), and at the bench
+def g_chunks_vs_knn_cu(torch, chunks):
+    """G on every recorded pose chunk against its plain version (hold_g),
+    and bit for bit against csrc/knn.cu's batched f32 route (G's kernel
+    before knn_batched.cu, still built for F and H's f32 mode), with its
+    device time and launches per call on the first chunk, and how many of
+    the pose chunk's ratio-test matches the two routes' outputs decide
+    differently."""
+    from opencv_dlco_tpu_torch.ops import knn_fused
+    from opencv_dlco_tpu_torch.ops.knn import ratio_test
+    from opencv_dlco_tpu_torch.pipeline.slam import SlamConfig
+
+    def knn_cu(q, t):
+        return knn_fused._fused_call(q, t, 2, bf16=False,
+                                     wrapper=knn_fused.knn2_fused)
+
+    def matches(d, i):
+        return ratio_test(d.reshape(-1, 2), i.reshape(-1, 2),
+                          ratio=SlamConfig().ratio)[0]
+
+    same, idx_diff, d_diff, swaps, match_diff = 0, 0, 0.0, 0, 0
+    for i, (q, t) in enumerate(chunks):
+        dk, ik = knn_fused.knn2_fused_batched(q, t)
+        swaps += hold_g(torch, f"G[pose chunk {i}]", q, t, (dk, ik))[3]
+        do, io = knn_cu(q, t)
+        same += int(torch.equal(dk, do) and torch.equal(ik, io))
+        idx_diff += int((ik != io).sum())
+        d_diff = max(d_diff, float((dk - do).abs().max()))
+        match_diff += int((matches(dk, ik) != matches(do, io)).sum())
+    q, t = chunks[0]
+    return dict(chunks=len(chunks), near_tie_swaps_vs_plain=swaps,
+                bit_identical_to_knn_cu=same, idx_differing=idx_diff,
+                max_abs_dist_diff=d_diff,
+                ratio_test_matches_differing=match_diff,
+                knn_cu_ms=time_ms(torch, lambda: knn_cu(q, t), 20),
+                knn_cu_profiler=profile_calls(torch, lambda: knn_cu(q, t), 20))
+
+
+def kernel_checks_3(torch, chunks):
+    """G on the SLAM pose chunks' recorded inputs (the counted run's, at
+    the exported descriptor's width; times on the first), and at the bench
     row's nominal 64-D width on descriptors of the same magnitude with the
     same masks (~20% of rows at +-1e6)."""
-    q, t = chunk
+    q, t = chunks[0]
     rows = {"G": g_row(torch, "G[SLAM chunk]", q, t, "the SLAM pose chunk")}
+    rows["G"]["pose_chunks"] = g_chunks_vs_knn_cu(torch, chunks)
     c, n, _ = q.shape
     g = torch.Generator(device="cuda").manual_seed(64)
     real = q[q.abs().amax(-1) < 1e5]
@@ -1126,33 +1250,43 @@ def main() -> int:
         del out2
 
         # -- SLAM at the bench row -----------------------------------------
-        chunks = []
+        chunks = []                     # the counted run's G inputs
+        g_outputs = {"counted": [], "steady": [], "profiled": []}
 
-        def record(fn):
-            """The pose chunk's G call site: keeps the first call's inputs
-            and calls through."""
-            def g(query, train, **kw):
-                if not chunks:
-                    chunks.append((query.clone(), train.clone()))
-                return fn(query, train, **kw)
-            return g
+        def recorder(run, keep=False):
+            """Wraps the pose chunk's G call site: a hash of each output
+            goes to g_outputs[run]; with ``keep``, each call's inputs to
+            ``chunks``."""
+            def record(fn):
+                def g(query, train, **kw):
+                    if keep:
+                        chunks.append((query.clone(), train.clone()))
+                    d, i = fn(query, train, **kw)
+                    g_outputs[run].append(hashlib.sha1(
+                        d.cpu().numpy().tobytes()
+                        + i.cpu().numpy().tobytes()).hexdigest()[:8])
+                    return d, i
+                return g
+            return record
 
         print(f"forward-AD first use: {first_forward_ad_seconds(torch):.3f}s",
               flush=True)
         (facts3, secs3, slam_inputs), launches3 = counted(
-            run_slam_path, torch, np, header_64, record)
+            run_slam_path, torch, np, header_64, recorder("counted", True))
         print("SLAM stage seconds:", json.dumps(secs3), flush=True)
         print("SLAM launches:", json.dumps(launches3), flush=True)
         if launches3["G"] == 0:
             raise AssertionError("kernel G never launched on the SLAM path")
         print("SLAM:", json.dumps(facts3), flush=True)
-        steady = rerun_slam_path(torch, slam_inputs)
-        print("SLAM steady state:", json.dumps(steady), flush=True)
-        del slam_inputs
 
+        # the kernels' checks and profiles come before the SLAM profile
         res = kernel_checks(torch, ws, out["dist"])
         res.update(kernel_checks_2(torch))
-        res.update(kernel_checks_3(torch, chunks[0]))
+        res.update(kernel_checks_3(torch, chunks))
+        steady = rerun_slam_path(torch, np, slam_inputs, recorder)
+        print("SLAM steady state:", json.dumps(steady), flush=True)
+        print("SLAM G outputs by run:", json.dumps(g_outputs), flush=True)
+        del slam_inputs
         for key, r in res.items():
             print(f"kernel {key}: " + json.dumps(r), flush=True)
         print("kernel shares:", json.dumps(kernel_shares(
@@ -1163,7 +1297,8 @@ def main() -> int:
                          ("G", "G"), ("H", "H64")):
             r = {k: v for k, v in res[row].items()
                  if k not in ("shape", "tolerance", "sorted_ms",
-                              "max_rel_err", "device_us_per_step")}
+                              "max_rel_err", "device_us_per_step",
+                              "profiler", "pose_chunks")}
             table.append({**r, "launches": launches[key] + launches2[key]
                           + launches3[key]})
         print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)

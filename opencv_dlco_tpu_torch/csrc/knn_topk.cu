@@ -1,0 +1,578 @@
+// Kernel H on Hopper: top-k nearest neighbours (1 <= k <= 16) of bf16
+// descriptors, products on wgmma and a pruned, deferred selection.
+//
+// Replaces the TPU kernel opencv_dlco_tpu/ops/knn_pallas.py::_knnk_kernel
+// (entry point knnk_fused) in its bf16 mode, at every width; the f32 mode
+// stays on knn.cu's kernel. For queries
+// q (B, N, D) and train rows t (B, M, D), rounded to bf16:
+//   dist[n, m] = max(|q_n|^2 + |t_m|^2 - 2 q_n . t_m, 0)
+// with the norms summed in f32 from the rounded values, and per query the k
+// smallest (dist, m) in lexicographic order (equal distances go to the
+// lowest train index), ascending; (inf, -1) fills the slots of a query with
+// fewer than k neighbours. The expression is evaluated as
+// fma(-2, g, nq + nt): 2 g is exact in f32, so the fma rounds once, exactly
+// as (nq + nt) - 2 g does.
+//
+// Bound on an H100 at 65,536 x 65,536, d = 64: the products are 0.55 TFLOP,
+// 0.56 ms at 989 TFLOP/s; each candidate costs ~3 CUDA-core instructions
+// (an add, an fma and a min), 13 G instructions, 0.39 ms. The two run on
+// different units, so the kernel can approach the larger of them only if
+// they overlap.
+//
+// Design: one launch. A CTA owns 64 NCW queries, resident in shared memory
+// (NCW = 3 consumer warpgroups of 64 for k <= 12, 2 for larger k, 1 for
+// rows too wide for those queries and their queues), loaded by TMA in
+// 64-element K chunks of 128-byte swizzled rows, and walks the train rows
+// in tiles of 64, one stage per (tile, K chunk), through a ring of TMA
+// stages behind mbarriers. Rows too wide for even one warpgroup's resident
+// queries (past 1,344 elements on an H100) stream them instead: each stage
+// then carries the query chunk beside the train chunk, re-read from L2 for
+// every train tile. Warp 0 of the first warpgroup issues the copies; warps
+// 1 and 2 sum each arrived tile's squared train norms into a ring of norm
+// slots in shared memory (+inf past the last train row). The query norms
+// come from the resident tile (streamed: from the first train tile's
+// stages). Each consumer warpgroup runs
+// wgmma m64n64k16 from shared memory (queries and train rows both K-major)
+// and folds its tile while the other warpgroups' products run. The
+// accumulator keeps one query row on the four lanes of a quad, as mma.sync
+// does. The selection is latency-bound, so the third warpgroup (more warps
+// to switch between, and each train tile read for 192 queries) is worth
+// more than the fuller last wave that 128 queries a CTA would give.
+//
+// Selection: each lane keeps, per query row it holds (g and g + 8), a
+// sorted list of its k best (dist, m) over the columns it sees, in
+// registers: KMAX >= k slots (KMAX 2, 4, 8, 10, 12 or 16), the first
+// KMAX - k pinned at -1, so the list tail is the lane's k-th best. A
+// candidate is admitted only if its distance is below the row's threshold,
+// an upper bound of the row's k-th best: the minimum of (a) the lane's own
+// list tail, (b) the minimum of the quad's four tails and (c) the maximum
+// over the quad of each lane's ceil(k/4)-th entry (together 4 ceil(k/4)
+// >= k entries at or below it), all refreshed at every merge. Every listed
+// column precedes every candidate in column order, so "below the bound" is
+// exact for ties: a candidate at the bound's distance loses to the listed
+// entries. The fast path turns the accumulators into distances in place
+// and takes each row's minimum over the tile. Only when some row of the
+// warp has a candidate below its threshold does the warp take the slow
+// path: it first merges every lane's queue into the lists, together, if
+// some queue could not take a whole tile more, then appends each column
+// pair holding an admitted candidate (the other as +inf) to the lane's
+// queue for its row in shared memory (10 pairs). So the merge code, the
+// KMAX-deep insertions, sits once in the loop, runs rarely, and handles
+// many admissions at a time. At the end the queues merge and the four
+// lists of each row merge through shuffles.
+#include <math.h>
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int BN = 64;                      // train rows per tile
+constexpr int KC = 64;                      // bf16 elements per K chunk
+constexpr int WGQ = 64;                     // queries per consumer warpgroup
+constexpr int STAGE_BYTES = BN * KC * 2;    // 8 KB of train rows per stage
+constexpr int MAX_STAGES = 8;
+constexpr int NTS = 4;                      // norm slots (tiles in flight)
+constexpr int QL = 10;                      // queued column pairs per lane and row
+constexpr int N_NORM_LANES = 64;            // warps 1 and 2
+constexpr int IMAX = 0x7fffffff;
+
+// queries a CTA holds per K chunk, in bytes
+__host__ __device__ constexpr int q_chunk_bytes(int ncw) {
+  return ncw * WGQ * KC * 2;
+}
+
+// the consumers' queues: (row, slot, consumer thread) of a column pair
+// (dist or +inf, dist or +inf, first column, unused)
+__host__ __device__ constexpr int queue_bytes(int ncw) {
+  return 2 * QL * ncw * 128 * 16;
+}
+
+// bytes of one stage: a train chunk, and with streamed queries the CTA's
+// query chunk after it
+__host__ __device__ constexpr int stage_bytes(int ncw, bool qstream) {
+  return STAGE_BYTES + (qstream ? q_chunk_bytes(ncw) : 0);
+}
+
+// dynamic shared memory: alignment slack, the resident queries (none when
+// streamed), the stage ring, the queues, the norm slots and the barriers
+__host__ __device__ constexpr size_t smem_bytes(int ncw, int nch, int stages,
+                                                bool qstream) {
+  return 1024 + (qstream ? 0 : static_cast<size_t>(nch) * q_chunk_bytes(ncw)) +
+         static_cast<size_t>(stages) * stage_bytes(ncw, qstream) +
+         queue_bytes(ncw) + NTS * BN * 4 + 8 * (2 * MAX_STAGES + 1 + 2 * NTS);
+}
+
+__device__ __forceinline__ bool lex_less(float d, int i, float e, int j) {
+  return d < e || (d == e && i < j);
+}
+
+// sums of squares of 8 bf16 packed in 16 bytes, added to four partial
+// sums (independent chains)
+__device__ __forceinline__ void add_sq8(const uint8_t* p, float (&s)[4]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float x = __bfloat162float(e[i]);
+    s[i & 3] = fmaf(x, x, s[i & 3]);
+  }
+}
+
+// insert (v, i) into the ascending list if it is below the tail; every
+// listed column precedes i, so ties stay in front of it
+template <int KMAX>
+__device__ __forceinline__ void insert_sorted(float (&ld)[KMAX],
+                                              int (&li)[KMAX], float v,
+                                              int i) {
+  if (!(v < ld[KMAX - 1])) return;
+#pragma unroll
+  for (int s = KMAX - 1; s > 0; --s) {
+    if (v < ld[s - 1]) {
+      ld[s] = ld[s - 1];
+      li[s] = li[s - 1];
+    } else if (v < ld[s]) {
+      ld[s] = v;
+      li[s] = i;
+    }
+  }
+  if (v < ld[0]) {
+    ld[0] = v;
+    li[0] = i;
+  }
+}
+
+// k rounds over the four lists of a quad (lanes 4g .. 4g + 3): the lowest
+// head wins and its owner pops it; the writer lane stores the row's k
+// entries
+template <int KMAX>
+__device__ __forceinline__ void merge_quad(float (&ld)[KMAX],
+                                           int (&li)[KMAX], int k,
+                                           bool writer, float* od, int* oi) {
+#pragma unroll
+  for (int r = 0; r < KMAX; ++r) {
+    if (r < k) {
+      float bd = ld[0];
+      int bi = li[0];
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float d2 = __shfl_xor_sync(0xffffffffu, bd, off);
+        const int i2 = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (lex_less(d2, i2, bd, bi)) {
+          bd = d2;
+          bi = i2;
+        }
+      }
+      if (bd == ld[0] && bi == li[0]) {  // only sentinels tie across lists
+#pragma unroll
+        for (int s = 0; s < KMAX - 1; ++s) {
+          ld[s] = ld[s + 1];
+          li[s] = li[s + 1];
+        }
+        ld[KMAX - 1] = INFINITY;
+        li[KMAX - 1] = IMAX;
+      }
+      if (writer) {
+        const bool real = isfinite(bd) && bi != IMAX;
+        od[r] = real ? bd : INFINITY;
+        oi[r] = real ? bi : -1;
+      }
+    }
+  }
+}
+
+// drop the KMAX - k pinned slots at the front of a list
+template <int KMAX>
+__device__ __forceinline__ void unpin(float (&ld)[KMAX], int (&li)[KMAX],
+                                      int k) {
+#pragma unroll
+  for (int r = 0; r < KMAX - 1; ++r) {
+    if (r < KMAX - k) {
+#pragma unroll
+      for (int s = 0; s < KMAX - 1; ++s) {
+        ld[s] = ld[s + 1];
+        li[s] = li[s + 1];
+      }
+      ld[KMAX - 1] = INFINITY;
+      li[KMAX - 1] = IMAX;
+    }
+  }
+}
+
+// queue the column pairs (8 j + 2 q4 + {0, 1}, accumulators 4 j + h and
+// 4 j + h + 1) of one row with a distance below thr: entries at q[CT * cnt]
+template <int CT>
+__device__ __forceinline__ void queue_pairs(const float (&acc)[32], int h,
+                                            float thr, float4* q, int& cnt,
+                                            int cb) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float a = acc[4 * j + h], c = acc[4 * j + h + 1];
+    const bool pa = a < thr, pc = c < thr;
+    if (pa || pc)
+      q[CT * cnt++] = make_float4(pa ? a : INFINITY, pc ? c : INFINITY,
+                                  __int_as_float(cb + 8 * j), 0.f);
+  }
+}
+
+// QS: the queries stream through the stages (else they are resident)
+template <int KMAX, int NCW, bool QS>
+__global__ void __launch_bounds__(128 * (NCW + 1), 1)
+knnk_wgmma(const __grid_constant__ CUtensorMap tm_q,
+           const __grid_constant__ CUtensorMap tm_t, float* __restrict__ od,
+           int* __restrict__ oi, int n, int m, int nch, int k, int stages) {
+  constexpr int TQ = NCW * WGQ;
+  constexpr int QCB = q_chunk_bytes(NCW);
+  constexpr int CT = 128 * NCW;  // consumer threads
+  constexpr int sb = stage_bytes(NCW, QS);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t qs = (raw + 1023u) & ~1023u;  // resident query chunks
+  uint8_t* const qs_ptr = smem_raw + (qs - raw);
+  const int qres = QS ? 0 : nch * QCB;
+  const uint32_t st0 = qs + qres;  // stage ring
+  uint8_t* const st_ptr = qs_ptr + qres;
+  float4* const queue = reinterpret_cast<float4*>(st_ptr + stages * sb);
+  float* const nt_ring =
+      reinterpret_cast<float*>(st_ptr + stages * sb + queue_bytes(NCW));
+  const uint32_t bars = st0 + stages * sb + queue_bytes(NCW) + NTS * BN * 4;
+  const uint32_t full = bars, empty = bars + 8 * MAX_STAGES;
+  const uint32_t qfull = bars + 16 * MAX_STAGES;
+  const uint32_t ntfull = qfull + 8, ntempty = ntfull + 8 * NTS;
+
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * TQ;
+  const int ntiles = (m + BN - 1) / BN;
+  const int steps = ntiles * nch;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * NCW + N_NORM_LANES);
+    }
+    mbar_init(qfull, 1);
+    for (int s = 0; s < NTS; ++s) {
+      mbar_init(ntfull + 8 * s, N_NORM_LANES);
+      mbar_init(ntempty + 8 * s, CT);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  if (wg == 0) {
+    if (warp == 0 && lane == 0) {  // producer: the queries, then the stages
+      if (!QS) {
+        mbar_expect_tx(qfull, nch * QCB);
+        for (int c = 0; c < nch; ++c)
+          tma_load_2d(qs + c * QCB, &tm_q, qfull, c * KC, b * n + n0);
+      }
+      for (int it = 0; it < steps; ++it) {
+        const int s = it % stages, t = it / nch, c = it - t * nch;
+        mbar_wait(empty + 8 * s, ((it / stages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, sb);
+        tma_load_2d(st0 + s * sb, &tm_t, full + 8 * s, c * KC,
+                    b * m + t * BN);
+        if (QS)
+          tma_load_2d(st0 + s * sb + STAGE_BYTES, &tm_q, full + 8 * s, c * KC,
+                      b * n + n0);
+      }
+    } else if (warp == 1 || warp == 2) {  // train norms, one row a lane
+      const int r = (warp - 1) * 32 + lane;
+      const int rsw = r & 7;
+      for (int t = 0; t < ntiles; ++t) {
+        const int slot = t % NTS;
+        mbar_wait(ntempty + 8 * slot, ((t / NTS) & 1) ^ 1);
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int c = 0; c < nch; ++c) {
+          const int it = t * nch + c, s = it % stages;
+          mbar_wait(full + 8 * s, (it / stages) & 1);
+          const uint8_t* row =
+              st_ptr + s * sb + (r >> 3) * 1024 + rsw * 128;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) add_sq8(row + ((j ^ rsw) << 4), acc);
+          mbar_arrive(empty + 8 * s);
+        }
+        nt_ring[slot * BN + r] =
+            t * BN + r < m ? (acc[0] + acc[1]) + (acc[2] + acc[3]) : INFINITY;
+        mbar_arrive(ntfull + 8 * slot);
+      }
+    }
+    return;
+  }
+
+  // -- consumers: warpgroup cw owns queries n0 + 64 cw .. + 63 --------------
+  const int cw = wg - 1;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int r0 = cw * WGQ + warp * 16 + g, r1 = r0 + 8;  // rows in the tile
+  // query norms: each lane sums 16 of a chunk's 64 elements of rows r0 and
+  // r1, the quad adds its four sums
+  float sq0[4] = {0.f, 0.f, 0.f, 0.f}, sq1[4] = {0.f, 0.f, 0.f, 0.f};
+  auto add_query_chunk = [&](const uint8_t* qc) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = q4 + 4 * h;
+      add_sq8(qc + (r0 >> 3) * 1024 + g * 128 + ((j ^ g) << 4), sq0);
+      add_sq8(qc + (r1 >> 3) * 1024 + g * 128 + ((j ^ g) << 4), sq1);
+    }
+  };
+  float nq0 = 0.f, nq1 = 0.f;
+  auto finish_query_norms = [&]() {
+    nq0 = (sq0[0] + sq0[1]) + (sq0[2] + sq0[3]);
+    nq1 = (sq1[0] + sq1[1]) + (sq1[2] + sq1[3]);
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      nq0 += __shfl_xor_sync(0xffffffffu, nq0, off);
+      nq1 += __shfl_xor_sync(0xffffffffu, nq1, off);
+    }
+  };
+  if (!QS) {
+    mbar_wait(qfull, 0);
+    for (int c = 0; c < nch; ++c) add_query_chunk(qs_ptr + c * QCB);
+    finish_query_norms();
+  }
+
+  float ld0[KMAX], ld1[KMAX];
+  int li0[KMAX], li1[KMAX];
+#pragma unroll
+  for (int s = 0; s < KMAX; ++s) {
+    ld0[s] = ld1[s] = s < KMAX - k ? -1.f : INFINITY;
+    li0[s] = li1[s] = IMAX;
+  }
+  // the slot of each lane's ceil(k / 4)-th entry
+  const int quarter = KMAX - k + (k + 3) / 4 - 1;
+  // this thread's queues in shared memory: entry s of row h at
+  // queue[(h * QL + s) * CT + ct]
+  const int ct = threadIdx.x - 128;
+  float4* const q0 = queue + ct;
+  float4* const q1 = queue + QL * CT + ct;
+  int cnt0 = 0, cnt1 = 0;
+  float thr0 = INFINITY, thr1 = INFINITY;
+
+  // insert every lane's queued entries into its lists, then refresh the
+  // thresholds: the own tail, the quad's minimum tail and maximum
+  // ceil(k/4)-th entry (warp-uniform)
+  auto merge_queues = [&]() {
+    const int rounds = __reduce_max_sync(0xffffffffu, max(cnt0, cnt1));
+    for (int s = 0; s < rounds; ++s) {
+      if (s < cnt0) {
+        const float4 e = q0[s * CT];
+        insert_sorted<KMAX>(ld0, li0, fmaxf(e.x, 0.f), __float_as_int(e.z));
+        insert_sorted<KMAX>(ld0, li0, fmaxf(e.y, 0.f),
+                            __float_as_int(e.z) + 1);
+      }
+      if (s < cnt1) {
+        const float4 e = q1[s * CT];
+        insert_sorted<KMAX>(ld1, li1, fmaxf(e.x, 0.f), __float_as_int(e.z));
+        insert_sorted<KMAX>(ld1, li1, fmaxf(e.y, 0.f),
+                            __float_as_int(e.z) + 1);
+      }
+    }
+    cnt0 = cnt1 = 0;
+    float v0 = INFINITY, v1 = INFINITY;
+#pragma unroll
+    for (int s = 0; s < KMAX; ++s)
+      if (s == quarter) {
+        v0 = ld0[s];
+        v1 = ld1[s];
+      }
+    float m0 = ld0[KMAX - 1], m1 = ld1[KMAX - 1];
+    thr0 = fminf(thr0, m0);
+    thr1 = fminf(thr1, m1);
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, off));
+      v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, off));
+      m0 = fminf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fminf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    thr0 = fminf(thr0, fminf(v0, m0));
+    thr1 = fminf(thr1, fminf(v1, m1));
+  };
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  // descriptors of the warpgroup's first query chunk (resident, or in
+  // stage 0 when streamed) and of stage 0's train chunk; a byte offset o
+  // inside shared memory advances a descriptor by o / 16
+  const uint64_t da0 = sw128_desc(
+      (QS ? st0 + STAGE_BYTES : qs) + cw * (QCB / NCW), 16, 1024);
+  const uint64_t db0 = sw128_desc(st0, 16, 1024);
+
+  for (int t = 0; t < ntiles; ++t) {
+    for (int c = 0; c < nch; ++c) {
+      const int it = t * nch + c, s = it % stages;
+      mbar_wait(full + 8 * s, (it / stages) & 1);
+      if (QS && t == 0) add_query_chunk(st_ptr + s * sb + STAGE_BYTES);
+      wgmma_fence();
+      const uint64_t da = da0 + (QS ? s * (sb / 16) : c * (QCB / 16));
+      const uint64_t db = db0 + s * (sb / 16);
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+        wgmma_m64n64k16(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+    if (QS && t == 0) finish_query_norms();
+
+    const int slot = t % NTS;
+    mbar_wait(ntfull + 8 * slot, (t / NTS) & 1);
+    float2 ntv[BN / 8];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      ntv[j] = *reinterpret_cast<const float2*>(&nt_ring[slot * BN + 8 * j +
+                                                         2 * q4]);
+    mbar_arrive(ntempty + 8 * slot);
+
+    // n8 slice j holds columns 8 j + 2 q4 + {0, 1} of rows r0 (acc
+    // 4 j + e) and r1 (4 j + 2 + e). Fast path: the distances, in place,
+    // and each row's minimum over the tile.
+    float mn0 = INFINITY, mn1 = INFINITY;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float nt = e ? ntv[j].y : ntv[j].x;
+        acc[4 * j + e] =
+            __fmaf_rn(-2.f, acc[4 * j + e], __fadd_rn(nq0, nt));
+        acc[4 * j + 2 + e] =
+            __fmaf_rn(-2.f, acc[4 * j + 2 + e], __fadd_rn(nq1, nt));
+        mn0 = fminf(mn0, acc[4 * j + e]);
+        mn1 = fminf(mn1, acc[4 * j + 2 + e]);
+      }
+    }
+    // slow path, for the whole warp when any of its rows has a candidate
+    // below its threshold: make room for a tile (at most 8 pairs a row),
+    // then queue every column pair with a candidate below the (possibly
+    // refreshed) threshold, the other candidate of the pair as +inf
+    if (__any_sync(0xffffffffu, mn0 < thr0 || mn1 < thr1)) {
+      if (__any_sync(0xffffffffu, cnt0 > QL - 8 || cnt1 > QL - 8))
+        merge_queues();
+      const int cb = t * BN + 2 * q4;
+      if (__any_sync(0xffffffffu, mn0 < thr0))
+        queue_pairs<CT>(acc, 0, thr0, q0, cnt0, cb);
+      if (__any_sync(0xffffffffu, mn1 < thr1))
+        queue_pairs<CT>(acc, 2, thr1, q1, cnt1, cb);
+    }
+  }
+  if (__any_sync(0xffffffffu, cnt0 > 0 || cnt1 > 0)) merge_queues();
+
+  unpin<KMAX>(ld0, li0, k);
+  unpin<KMAX>(ld1, li1, k);
+  const size_t o0 = (static_cast<size_t>(b) * n + n0 + r0) * k;
+  const size_t o1 = o0 + 8 * static_cast<size_t>(k);
+  merge_quad<KMAX>(ld0, li0, k, q4 == 0 && n0 + r0 < n, od + o0, oi + o0);
+  merge_quad<KMAX>(ld1, li1, k, q4 == 0 && n0 + r1 < n, od + o1, oi + o1);
+}
+
+// Consumer warpgroups of the wide configuration: 3 (192 queries a CTA, at
+// most 128 registers a thread) where the lists leave room, else 2.
+template <int KMAX>
+constexpr int wide_ncw() {
+  return KMAX <= 12 ? 3 : 2;
+}
+
+// A launch configuration: consumer warpgroups (ncw_hi, or 1 when ncw_hi
+// warpgroups' resident queries and queues do not fit), whether the queries
+// stream through the stages (when not even one warpgroup's fit), stages
+// (the most of 2 .. MAX_STAGES that fit) and the dynamic shared memory;
+// ncw 0 when nothing fits or the device cannot be queried.
+struct Config {
+  int ncw = 0, stages = 0, smem = 0;
+  bool qstream = false;
+};
+
+Config pick_config(int nch, int ncw_hi) {
+  Config cfg;
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return cfg;
+  const int tries[3][2] = {{ncw_hi, 0}, {1, 0}, {1, 1}};
+  for (const auto& tr : tries)
+    for (int s = MAX_STAGES; s >= 2; --s) {
+      const size_t bytes = smem_bytes(tr[0], nch, s, tr[1] != 0);
+      if (bytes <= static_cast<size_t>(optin)) {
+        cfg.ncw = tr[0];
+        cfg.qstream = tr[1] != 0;
+        cfg.stages = s;
+        cfg.smem = static_cast<int>(bytes);
+        return cfg;
+      }
+    }
+  return cfg;
+}
+
+template <int KMAX, int NCW, bool QS>
+int launch(const void* q, const void* t, float* od, int* oi, int batch,
+           int n, int m, int d, int k, const Config& cfg,
+           cudaStream_t stream) {
+  CUtensorMap tq, tt;
+  const uint64_t row = static_cast<uint64_t>(d) * 2;
+  if (!tmap_bf16_2d(&tq, q, d, static_cast<uint64_t>(batch) * n, row, KC,
+                    NCW * WGQ) ||
+      !tmap_bf16_2d(&tt, t, d, static_cast<uint64_t>(batch) * m, row, KC, BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e =
+      cudaFuncSetAttribute(knnk_wgmma<KMAX, NCW, QS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           cfg.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((n + NCW * WGQ - 1) / (NCW * WGQ), batch);
+  knnk_wgmma<KMAX, NCW, QS><<<grid, 128 * (NCW + 1), cfg.smem, stream>>>(
+      tq, tt, od, oi, n, m, (d + KC - 1) / KC, k, cfg.stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KMAX>
+int launch_k(const void* q, const void* t, float* od, int* oi, int batch,
+             int n, int m, int d, int k, const Config& cfg,
+             cudaStream_t stream) {
+  constexpr int W = wide_ncw<KMAX>();
+  if (cfg.ncw == W)
+    return launch<KMAX, W, false>(q, t, od, oi, batch, n, m, d, k, cfg,
+                                  stream);
+  if (!cfg.qstream)
+    return launch<KMAX, 1, false>(q, t, od, oi, batch, n, m, d, k, cfg,
+                                  stream);
+  return launch<KMAX, 1, true>(q, t, od, oi, batch, n, m, d, k, cfg, stream);
+}
+
+}  // namespace
+
+// q (B * N, D) and t (B * M, D) bf16, rows contiguous and packed (batch b's
+// rows at b * N and b * M), 16-byte aligned, D % 8 == 0; od (B, N, k) f32
+// and oi (B, N, k) i32 contiguous. 1 <= k <= 16 and N, M, B >= 1. Returns a
+// CUDA error code (0 on success) after the launch; cudaErrorInvalidValue for
+// arguments outside these limits.
+extern "C" int knn_topk_launch(const void* q, const void* t, void* od,
+                               void* oi, int batch, int n, int m, int d,
+                               int k, void* stream) {
+  if (k < 1 || k > 16 || n < 1 || m < 1 || batch < 1 || d < 8 || d % 8 ||
+      reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(t) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Config cfg = pick_config((d + KC - 1) / KC, k <= 12 ? 3 : 2);
+  if (cfg.ncw == 0) return static_cast<int>(cudaErrorInvalidValue);
+  float* odf = static_cast<float*>(od);
+  int* oii = static_cast<int*>(oi);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 2) return launch_k<2>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
+  if (k <= 4) return launch_k<4>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
+  if (k <= 8) return launch_k<8>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
+  if (k <= 10)
+    return launch_k<10>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
+  if (k <= 12)
+    return launch_k<12>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
+  return launch_k<16>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
+}
+
+// Dynamic shared memory a CTA requests at width d (k <= 12).
+extern "C" int knn_topk_smem_bytes(int d) {
+  return pick_config((d + KC - 1) / KC, 3).smem;
+}

@@ -31,7 +31,9 @@ SOURCES = {
     "rda_wide": "rda_wide.cu",        # kernel B
     "rda_narrow": "rda_narrow.cu",    # kernels C and D
     "hinge": "hinge.cu",              # kernel E
-    "knn": "knn.cu",                  # kernels F, G and H
+    "knn": "knn.cu",                  # kernel F (and H in f32)
+    "knn_topk": "knn_topk.cu",        # kernel H (bf16, wgmma)
+    "knn_batched": "knn_batched.cu",  # kernel G
 }
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,6 +54,10 @@ SIGNATURES = {
     "hinge": ("hinge_launch", [_P, _P, _P, _I, _I, _P]),
     "knn": ("knn_launch", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _P]),
+    "knn_topk": ("knn_topk_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _P]),
+    "knn_batched": ("knn2_batched_launch", [_P, _P, _P, _I, _I, _I, _I, _L,
+                                            _L, _L, _L, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

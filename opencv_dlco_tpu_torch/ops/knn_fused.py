@@ -1,20 +1,25 @@
 """Kernels F, G and H: fused k-NN, distance products and a running top-k
-in one pass (``csrc/knn.cu``).
+in one pass.
 
 Port of ``opencv_dlco_tpu/ops/knn_pallas.py``:
 
-- ``knn2_fused``: kernel F, the 2 nearest train rows of every query;
-- ``knn2_fused_batched``: kernel G, F over a leading batch axis (the SLAM
-  pose chunk's C matching problems, one launch, the batch on grid z);
-- ``knnk_fused``: kernel H, the k nearest for 1 <= k <= 16.
+- ``knn2_fused``: kernel F, the 2 nearest train rows of every query
+  (``csrc/knn.cu``);
+- ``knn2_fused_batched``: kernel G, the 2-NN over a leading batch axis (the
+  SLAM pose chunk's C matching problems, one launch;
+  ``csrc/knn_batched.cu``);
+- ``knnk_fused``: kernel H, the k nearest for 1 <= k <= 16 (bf16:
+  ``csrc/knn_topk.cu``, wgmma products and a pruned selection; f32:
+  ``csrc/knn.cu``).
 
 All compute ||q||^2 + ||t||^2 - 2 q.t clamped at 0 and return (dists
 (N, k) f32 ascending, idx (N, k) int32), equal distances ordered by the
 lower train index, (inf, -1) where a query has fewer than k neighbours.
 ``bf16=True`` rounds q and t to bf16 before the norms and the products
 (the TPU kernels' fast mode); ``bf16=False`` is true f32, TF32 off.
-``_fused_call`` takes the leading batch axis, as the TPU's ``_fused_call``
-does.
+The launchers take the leading batch axis, as the TPU's ``_fused_call``
+does. G and H (bf16) are one kernel launch a call, the norms computed
+inside; ``csrc/knn.cu`` runs two norm passes before its main kernel.
 
 On a CPU tensor each wrapper runs ``knn_plain``, the same function in
 plain PyTorch; on a CUDA tensor it launches the kernel or raises.
@@ -22,7 +27,7 @@ plain PyTorch; on a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -93,33 +98,91 @@ def knn_plain(query: torch.Tensor, train: torch.Tensor, k: int, *,
     return (d, i) if batched else (d[0], i[0])
 
 
-def _fused_call(query: torch.Tensor, train: torch.Tensor, k: int, *,
-                bf16: bool, wrapper):
-    """Shared launcher: (B, N, D) x (B, M, D) -> ((B, N, k), (B, N, k)).
-    Counts a launch on ``wrapper.launches``."""
-    what = wrapper.__name__
-    b, n, d = query.shape
-    if train.ndim != 3 or train.shape[0] != b or train.shape[2] != d:
+_FNS: Dict[str, object] = {}
+
+
+def _entry(name: str):
+    """The launch entry point of library ``name``, loaded (built first if
+    needed) and looked up once."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = _FNS[name] = getattr(cuda_build.load(name),
+                                  cuda_build.SIGNATURES[name][0])
+    return fn
+
+
+def _run(dev: torch.device, fn, *args) -> int:
+    """Call a launch entry point on PyTorch's current stream of ``dev``,
+    switching the current device only when ``dev`` is not already it."""
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, _raw_stream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, _raw_stream(idx))
+
+
+def _raw_stream(idx: int) -> int:
+    """The current stream's handle on device ``idx`` (PyTorch's raw-handle
+    query where it exists: a Stream object per call costs ~10 us of host
+    time on the H100 host)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(idx)
+    return torch.cuda.current_stream(idx).cuda_stream
+
+
+def _check_args(query: torch.Tensor, train: torch.Tensor, k: int,
+                what: str) -> None:
+    if query.ndim != 3 or train.ndim != 3 or train.shape[0] != query.shape[0] \
+            or train.shape[2] != query.shape[2]:
         raise ValueError(f"{what}: train {tuple(train.shape)} does not match "
                          f"query {tuple(query.shape)}")
+    if query.shape[2] < 1:
+        raise ValueError(f"{what}: descriptors need at least one element")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"{what}: supports 1 <= k <= {MAX_K}, got {k}")
     if query.device != train.device:
         raise ValueError(f"{what}: query and train must share a device")
+
+
+def _bf16_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """x in bf16, D padded with ``pad`` zero columns (which change neither
+    the products nor the norms), contiguous, 16-byte aligned (the kernels'
+    16-byte copies and tensor maps need it)."""
+    x = x.to(torch.bfloat16)
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _empty_result(b: int, n: int, k: int, dev) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """(inf, -1) everywhere: the answer when there are no train rows."""
+    return (torch.full((b, n, k), float("inf"), device=dev),
+            torch.full((b, n, k), -1, dtype=torch.int32, device=dev))
+
+
+def _fused_call(query: torch.Tensor, train: torch.Tensor, k: int, *,
+                bf16: bool, wrapper):
+    """Launcher of ``csrc/knn.cu`` (kernel F; kernel H in f32): (B, N, D) x
+    (B, M, D) -> ((B, N, k),
+    (B, N, k)). Counts a launch on ``wrapper.launches``."""
+    what = wrapper.__name__
+    _check_args(query, train, k, what)
     if query.device.type == "cpu":
         return knn_plain(query, train, k, bf16=bf16)
     dev = query.device
-    dt = torch.bfloat16 if bf16 else torch.float32
-    q = query.to(dt)
-    t = train.to(dt)
-    pad = (-d) % 16 if bf16 else 0
-    if pad:  # zero columns change neither the products nor the norms
-        q = torch.nn.functional.pad(q, (0, pad))
-        t = torch.nn.functional.pad(t, (0, pad))
-    q, t = q.contiguous(), t.contiguous()
-    # the kernel's 16-byte copies need a 16-byte aligned base
-    q = q.clone() if q.data_ptr() % 16 else q
-    t = t.clone() if t.data_ptr() % 16 else t
+    b, n, d = query.shape
+    if bf16:
+        pad = (-d) % 16
+        q, t = _bf16_rows(query, pad), _bf16_rows(train, pad)
+    else:
+        pad = 0
+        q = query.to(torch.float32).contiguous()
+        t = train.to(torch.float32).contiguous()
+        q = q.clone() if q.data_ptr() % 16 else q
+        t = t.clone() if t.data_ptr() % 16 else t
     m = t.shape[1]
     od = torch.empty((b, n, k), dtype=torch.float32, device=dev)
     oi = torch.empty((b, n, k), dtype=torch.int32, device=dev)
@@ -127,15 +190,31 @@ def _fused_call(query: torch.Tensor, train: torch.Tensor, k: int, *,
         return od, oi
     qn = torch.empty((b, n), dtype=torch.float32, device=dev)
     tn = torch.empty((b, m), dtype=torch.float32, device=dev)
-    lib = cuda_build.load("knn")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.knn_launch(int(bf16), q.data_ptr(), t.data_ptr(),
-                            qn.data_ptr(), tn.data_ptr(), od.data_ptr(),
-                            oi.data_ptr(), b, n, m, d + pad, k, q.stride(0),
-                            q.stride(1), t.stride(0), t.stride(1), stream)
+    rc = _run(dev, _entry("knn"), int(bf16), q.data_ptr(), t.data_ptr(),
+              qn.data_ptr(), tn.data_ptr(), od.data_ptr(), oi.data_ptr(), b,
+              n, m, d + pad, k, q.stride(0), q.stride(1), t.stride(0),
+              t.stride(1))
     cuda_build.check(rc, what)
     wrapper.launches += 1
+    return od, oi
+
+
+def _topk_call(query: torch.Tensor, train: torch.Tensor, k: int):
+    """Launcher of ``csrc/knn_topk.cu`` (kernel H on Hopper, bf16): one
+    launch, norms inside. Counts a launch on ``knnk_fused.launches``."""
+    dev = query.device
+    b, n, d = query.shape
+    m = train.shape[1]
+    pad = (-d) % 16
+    q, t = _bf16_rows(query, pad), _bf16_rows(train, pad)
+    if b == 0 or n == 0 or m == 0:
+        return _empty_result(b, n, k, dev)
+    od = torch.empty((b, n, k), dtype=torch.float32, device=dev)
+    oi = torch.empty((b, n, k), dtype=torch.int32, device=dev)
+    rc = _run(dev, _entry("knn_topk"), q.data_ptr(), t.data_ptr(),
+              od.data_ptr(), oi.data_ptr(), b, n, m, d + pad, k)
+    cuda_build.check(rc, "knnk_fused")
+    knnk_fused.launches += 1
     return od, oi
 
 
@@ -150,20 +229,48 @@ def knn2_fused(query: torch.Tensor, train: torch.Tensor, *,
 
 def knn2_fused_batched(query: torch.Tensor, train: torch.Tensor, *,
                        bf16: bool = False):
-    """Batched 2-NN (kernel G): (B, N, D) x (B, M, D) -> (dists (B, N, 2),
-    idx (B, N, 2)) in one launch. Default f32 (TF32 off): pose estimation
-    is sensitive to match identity, and f32 is the mode the reference ran
-    it in."""
-    return _fused_call(query, train, 2, bf16=bf16,
-                       wrapper=knn2_fused_batched)
+    """Batched 2-NN (kernel G, ``csrc/knn_batched.cu``): (B, N, D) x
+    (B, M, D) -> (dists (B, N, 2), idx (B, N, 2)) in one launch, the two
+    outputs views of one buffer. Default f32 (TF32 off): pose estimation is
+    sensitive to match identity, and f32 is the mode the reference ran it
+    in; ``bf16=True`` rounds q and t to bf16 first (products stay f32)."""
+    _check_args(query, train, 2, "knn2_fused_batched")
+    if query.device.type == "cpu":
+        return knn_plain(query, train, 2, bf16=bf16)
+    dev = query.device
+    b, n, d = query.shape
+    m = train.shape[1]
+    q, t = query, train
+    if bf16:
+        q, t = q.to(torch.bfloat16), t.to(torch.bfloat16)
+    if q.dtype != torch.float32:
+        q = q.to(torch.float32)
+    if t.dtype != torch.float32:
+        t = t.to(torch.float32)
+    q = q if q.stride(2) == 1 else q.contiguous()
+    t = t if t.stride(2) == 1 else t.contiguous()
+    if b == 0 or n == 0 or m == 0:
+        return _empty_result(b, n, 2, dev)
+    dists, idx = torch.empty((2, b, n, 2), device=dev).unbind(0)
+    rc = _run(dev, _entry("knn_batched"), q.data_ptr(), t.data_ptr(),
+              dists.data_ptr(), b, n, m, d, q.stride(0), q.stride(1),
+              t.stride(0), t.stride(1))
+    cuda_build.check(rc, "knn2_fused_batched")
+    knn2_fused_batched.launches += 1
+    return dists, idx.view(torch.int32)
 
 
 def knnk_fused(query: torch.Tensor, train: torch.Tensor, k: int, *,
                bf16: bool = True):
     """Top-k (1 <= k <= 16) per query (kernel H): (dists (N, k) ascending,
-    idx (N, k) int32)."""
-    od, oi = _fused_call(query[None], train[None], k, bf16=bf16,
-                         wrapper=knnk_fused)
+    idx (N, k) int32). bf16 on a CUDA tensor runs ``csrc/knn_topk.cu`` at
+    every width; f32 runs ``csrc/knn.cu``."""
+    q, t = query[None], train[None]
+    if bf16 and query.device.type == "cuda":
+        _check_args(q, t, k, "knnk_fused")
+        od, oi = _topk_call(q, t, k)
+        return od[0], oi[0]
+    od, oi = _fused_call(q, t, k, bf16=bf16, wrapper=knnk_fused)
     return od[0], oi[0]
 
 

@@ -308,6 +308,19 @@ def test_kernel_g_matches_plain_with_masked_rows(dev, c, n, m, d):
     """Kernel G (knn2_fused_batched, f32): one launch per batch, against
     knn_plain on the batch, with the SLAM pose chunk's masks (invalid
     queries at 1e6, invalid train rows at -1e6)."""
+    _check_g_masked(dev, c, n, m, d)
+
+
+@pytest.mark.parametrize("c,n,m,d", [(16, 256, 256, 48), (1, 256, 256, 48),
+                                     (2, 45, 700, 48), (1, 33, 257, 200)])
+def test_kernel_g_at_the_slam_chunk_and_ragged_tiles(dev, c, n, m, d):
+    """G at the SLAM pose chunk's shape (16 x 256 x 256, d 48), at one
+    problem, and with N and M off the 32-query and 256-row tiles (several
+    train tiles, several D chunks)."""
+    _check_g_masked(dev, c, n, m, d)
+
+
+def _check_g_masked(dev, c, n, m, d):
     g = torch.Generator(device=dev).manual_seed(c * n + d)
     q = torch.randn((c, n, d), generator=g, device=dev) * d ** -0.5
     t = torch.randn((c, m, d), generator=g, device=dev) * d ** -0.5
@@ -335,3 +348,86 @@ def test_kernel_g_matches_plain_with_masked_rows(dev, c, n, m, d):
     picked = torch.gather(vt[:, None, :].expand(-1, n, -1), 2,
                           ik[..., :1].long())[..., 0]
     assert bool(picked[vq].all())
+
+
+def _tied_clustered(dev, n, m, d, seed):
+    """Realistic-margin descriptors whose train rows repeat: rows
+    m/2 .. m/2 + 199 copy rows 0 .. 199 (exact ties across tiles)."""
+    q, t = _clustered(dev, n, m, d, seed)
+    t[m // 2:m // 2 + 200] = t[:200]
+    return q.contiguous(), t.contiguous()
+
+
+@pytest.mark.parametrize("k", [1, 3, 10, 16])
+@pytest.mark.parametrize("d", [48, 64, 120, 600, 1400])
+def test_kernel_h_bf16_ragged_with_ties(dev, k, d):
+    """Kernel H's Hopper route (bf16, knn_topk.cu) against the bf16 plain
+    version, with M off the 64-row tile and duplicated train rows: match
+    identity on every column, and equal distances in ascending index. d 600
+    keeps one warpgroup's queries resident; d 1400 streams them."""
+    from opencv_dlco_tpu_torch.ops.knn import ratio_test
+
+    q, t = _tied_clustered(dev, 3001, 4999, d, seed=k + d)
+    before = knn_fused.knnk_fused.launches
+    dk, ik = knn_fused.knnk_fused(q, t, k)
+    assert knn_fused.knnk_fused.launches == before + 1
+    dp, ip = knn_fused.knn_plain(q, t, k, bf16=True)
+    torch.cuda.synchronize()
+    assert dk.shape == ik.shape == (3001, k)
+    same = ik == ip
+    assert same.float().mean(dim=0).min() >= 0.99
+    if k >= 2:
+        mk, _ = ratio_test(dk, ik)
+        mp, _ = ratio_test(dp, ip)
+        assert (mk == mp).float().mean() >= 0.99
+        tie = dk[:, 1:] == dk[:, :-1]
+        assert bool((ik[:, 1:] > ik[:, :-1])[tie].all())
+        assert bool((dk[:, 1:] >= dk[:, :-1]).all())
+    qb, tb = q.bfloat16().float(), t.bfloat16().float()
+    mag = (qb * qb).sum(1)[:, None] + (tb * tb).sum(1)[ip.long()]
+    err = (dk - dp).abs()[same]
+    assert bool((err <= 1e-3 * dp.abs()[same] + 1e-5 * mag[same]).all())
+
+
+def test_kernel_h_fewer_train_rows_than_k(dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((130, 64), generator=g, device=dev)
+    t = torch.randn((5, 64), generator=g, device=dev)
+    dk, ik = knn_fused.knnk_fused(q, t, 12)
+    _, ip = knn_fused.knn_plain(q, t, 12, bf16=True)
+    assert torch.equal(ik[:, 5:].cpu(), torch.full((130, 7), -1,
+                                                   dtype=torch.int32))
+    assert bool(torch.isinf(dk[:, 5:]).all())
+    assert (ik[:, :5] == ip[:, :5]).float().mean() >= 0.99
+
+
+def test_kernels_g_and_h_rerun_bit_identical(dev):
+    q, t = _tied_clustered(dev, 4096, 8192, 64, seed=1)
+    a = knn_fused.knnk_fused(q, t, 10)
+    b = knn_fused.knnk_fused(q, t, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    g = torch.Generator(device=dev).manual_seed(3)
+    qb = torch.randn((16, 256, 48), generator=g, device=dev)
+    tb = torch.randn((16, 256, 48), generator=g, device=dev)
+    a = knn_fused.knn2_fused_batched(qb, tb)
+    b = knn_fused.knn2_fused_batched(qb, tb)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_knn_wrappers_raise_on_shapes_the_kernels_cannot_take(dev):
+    q = torch.randn((10, 64), device=dev)
+    for k in (0, 17):
+        with pytest.raises(ValueError):
+            knn_fused.knnk_fused(q, q, k)
+    with pytest.raises(ValueError):          # D differs
+        knn_fused.knnk_fused(q, q[:, :32], 4)
+    with pytest.raises(ValueError):          # no descriptor elements
+        knn_fused.knnk_fused(q[:, :0], q[:, :0], 4)
+    with pytest.raises(ValueError):          # G takes (B, N, D) only
+        knn_fused.knn2_fused_batched(q, q)
+    with pytest.raises(ValueError):          # batch sizes differ
+        knn_fused.knn2_fused_batched(q[None], torch.cat([q[None], q[None]]))
+    with pytest.raises(ValueError):
+        knn_fused.knn2_fused_batched(q[None], q[None].cpu())

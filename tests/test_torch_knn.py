@@ -171,3 +171,262 @@ def test_pairwise_sq_dists_matches_jax(descs):
         port_knn.pairwise_sq_dists(_t(q[:50]), _t(t[:70])).numpy(),
         np.asarray(jax_knn.pairwise_sq_dists(jnp.asarray(q[:50]),
                                              jnp.asarray(t[:70]))), **DIST)
+
+
+# -- emulations of the Hopper kernels' selection (csrc/knn_topk.cu, kernel
+# H, and csrc/knn_batched.cu, kernel G): the same tiling, lane ownership,
+# thresholds, queues and merges, vectorised in PyTorch over warps and lanes,
+# on the distances the kernels compute. They hold the selection logic, the
+# part of each kernel that is not a product, against the plain version and
+# the JAX kernels.
+
+H_TILE, H_QUEUE = 64, 10     # queue capacity in column pairs
+
+
+def _raw_dists(q, t):
+    """Unclamped (|q|^2 + |t|^2) - 2 q.t in f32, as the kernels and
+    knn_plain evaluate it (2 q.t is exact, so one rounding either way)."""
+    q, t = q.to(torch.float32), t.to(torch.float32)
+    return ((q * q).sum(-1)[:, None] + (t * t).sum(-1)[None, :]) \
+        - 2.0 * (q @ t.T)
+
+
+def _insert(ld, li, v, i, mask):
+    """Insert (v, i) into the ascending lists (..., KMAX) where mask and v is
+    below the tail; strict comparisons (every listed column precedes i)."""
+    m = mask & (v < ld[..., -1])
+    vv, ii = v[..., None], i[..., None].expand_as(v[..., None])
+    lt_prev = vv < ld[..., :-1]
+    lt_cur = vv < ld[..., 1:]
+    rest_d = torch.where(lt_prev, ld[..., :-1],
+                         torch.where(lt_cur, vv, ld[..., 1:]))
+    rest_i = torch.where(lt_prev, li[..., :-1],
+                         torch.where(lt_cur, ii, li[..., 1:]))
+    first = vv < ld[..., :1]
+    new_d = torch.cat([torch.where(first, vv, ld[..., :1]), rest_d], -1)
+    new_i = torch.cat([torch.where(first, ii, li[..., :1]), rest_i], -1)
+    return (torch.where(m[..., None], new_d, ld),
+            torch.where(m[..., None], new_i, li))
+
+
+def emulate_h_selection(raw, k):
+    """Kernel H's selection over raw (N, M) distances: returns (dists (N, k),
+    idx (N, k), admitted candidates per row, slow tiles per warp). Rows go in
+    warps of 16 (lane quad g holds rows g and g + 8), columns in tiles of 64
+    (lane q4 of a quad sees 8 j + 2 q4 + e); each lane keeps a KMAX-slot
+    list per row with the first KMAX - k pinned at -1. A warp takes the slow
+    path on a tile when any of its rows has a candidate below its threshold:
+    it merges every lane's queues first if one holds more than 2 column
+    pairs (refreshing each threshold to the minimum of the own tail, the
+    quad's minimum tail and the quad's maximum ceil(k/4)-th entry), then
+    queues every column pair (8 j + 2 q4, + 1) holding a candidate below
+    the threshold."""
+    n, m = raw.shape
+    kmax = next(c for c in (2, 4, 8, 10, 12, 16) if k <= c)
+    w = -(-n // 16)
+    n_tiles = -(-m // H_TILE)
+    pad = torch.full((w * 16, n_tiles * H_TILE), float("inf"))
+    pad[:n, :m] = raw
+    # d[w, g, q4, h, col]: row w * 16 + h * 8 + g
+    rows = pad.view(w, 2, 8, -1).permute(0, 2, 1, 3)[:, :, None]
+    rows = rows.expand(-1, -1, 4, -1, -1)
+    shape = (w, 8, 4, 2)
+    inf, imax = float("inf"), 2 ** 31 - 1
+    ld = torch.full(shape + (kmax,), inf)
+    ld[..., :kmax - k] = -1.0
+    li = torch.full(shape + (kmax,), imax, dtype=torch.int64)
+    qd = torch.zeros(shape + (2 * H_QUEUE,))
+    qi = torch.zeros(shape + (2 * H_QUEUE,), dtype=torch.int64)
+    cnt = torch.zeros(shape, dtype=torch.int64)      # queued entries
+    pairs = torch.zeros(shape, dtype=torch.int64)    # queued column pairs
+    thr = torch.full(shape, inf)
+    admitted = torch.zeros(shape)
+    slow_tiles = torch.zeros(w)
+    quarter = kmax - k + (k + 3) // 4 - 1
+    q4 = torch.arange(4)[None, None, :, None]
+
+    def merge(sel):
+        nonlocal ld, li, cnt, pairs, thr
+        s4 = sel[:, None, None, None]
+        for s in range(2 * H_QUEUE):
+            ld, li = _insert(ld, li, qd[..., s], qi[..., s], s4 & (s < cnt))
+        cnt = torch.where(s4, 0, cnt)
+        pairs = torch.where(s4, 0, pairs)
+        bound = ld[..., quarter].amax(2, keepdim=True)
+        tmin = ld[..., -1].amin(2, keepdim=True)
+        new = torch.minimum(torch.minimum(thr, ld[..., -1]),
+                            torch.minimum(bound, tmin))
+        thr = torch.where(s4, new, thr)
+
+    for t in range(n_tiles):
+        cols = [t * H_TILE + 8 * j + 2 * q4 + e
+                for j in range(H_TILE // 8) for e in range(2)]
+        ds = [torch.gather(rows, 4, c.expand(shape)[..., None])[..., 0]
+              for c in cols]
+        slow = torch.stack([(d < thr) for d in ds]).flatten(2).any(-1) \
+            .any(0)
+        slow_tiles += slow
+        merge(slow & (pairs > H_QUEUE - 8).flatten(1).any(1))
+        for idx, (c, d) in enumerate(zip(cols, ds)):
+            ok = (d < thr) & slow[:, None, None, None]
+            admitted += ok
+            slot = torch.nn.functional.one_hot(
+                cnt.clamp(max=2 * H_QUEUE - 1), 2 * H_QUEUE).bool() \
+                & ok[..., None]
+            qd = torch.where(slot, d.clamp(min=0.0)[..., None], qd)
+            qi = torch.where(slot, c.expand(shape)[..., None], qi)
+            cnt = cnt + ok
+            if idx % 2:          # a column pair holding an admitted entry
+                pairs = pairs + (ok | ((ds[idx - 1] < thr)
+                                       & slow[:, None, None, None]))
+        assert int(pairs.max()) <= H_QUEUE
+    merge((cnt > 0).flatten(1).any(1))
+    # the quad's four lists of each row, pins dropped, merged
+    ld, li = ld[..., kmax - k:], li[..., kmax - k:]
+    cand_d = ld.permute(0, 3, 1, 2, 4).reshape(w * 16, 4 * k)
+    cand_i = li.permute(0, 3, 1, 2, 4).reshape(w * 16, 4 * k)
+    key = cand_d.clone()
+    key[cand_i == imax] = inf
+    order = torch.argsort(cand_i, dim=1)                     # column order
+    key, cand_i = torch.gather(key, 1, order), torch.gather(cand_i, 1, order)
+    top = torch.sort(key, dim=1, stable=True)
+    d_out = top.values[:n, :k]
+    i_out = torch.gather(cand_i, 1, top.indices)[:n, :k].to(torch.int32)
+    i_out = torch.where(torch.isfinite(d_out), i_out,
+                        torch.full_like(i_out, -1))
+    adm = admitted.permute(0, 3, 1, 2).reshape(w * 16, 4).sum(1)[:n]
+    return d_out, i_out, adm, slow_tiles
+
+
+def emulate_g_selection(dist):
+    """Kernel G's selection over clamped (B, N, M) distances: tiles of 256
+    columns, lane l of a warp owning columns 4 l + c and 128 + 4 l + c of
+    each tile, a strict running top-2 per lane in column order, then five
+    butterfly shuffles merging the 32 lanes' lists lexicographically."""
+    b, n, m = dist.shape
+    n_tiles = -(-m // 256)
+    pad = torch.full((b, n, n_tiles * 256), float("inf"))
+    pad[..., :m] = dist
+    # lane l's columns in the order it visits them
+    lane_cols = torch.stack([torch.cat([t * 256 + 4 * l + torch.arange(4),
+                                        t * 256 + 128 + 4 * l
+                                        + torch.arange(4)])
+                             for l in range(32) for t in range(n_tiles)]) \
+        .view(32, n_tiles * 8)
+    inf, imax = float("inf"), 2 ** 31 - 1
+    d1 = torch.full((b, n, 32), inf)
+    d2 = torch.full((b, n, 32), inf)
+    i1 = torch.full((b, n, 32), imax, dtype=torch.int64)
+    i2 = i1.clone()
+    for s in range(lane_cols.shape[1]):
+        col = lane_cols[:, s]
+        dd = pad[..., col]
+        lt2, lt1 = dd < d2, dd < d1
+        d2, i2 = (torch.where(lt1, d1, torch.where(lt2, dd, d2)),
+                  torch.where(lt1, i1, torch.where(lt2, col, i2)))
+        d1, i1 = torch.where(lt1, dd, d1), torch.where(lt1, col, i1)
+
+    def lex_less(d, i, e, j):
+        return (d < e) | ((d == e) & (i < j))
+
+    lanes = torch.arange(32)
+    for off in (1, 2, 4, 8, 16):
+        p = lanes ^ off
+        e1, j1, e2, j2 = d1[..., p], i1[..., p], d2[..., p], i2[..., p]
+        other_first = lex_less(e1, j1, d1, i1)
+        own = lex_less(d1, i1, e2, j2)
+        sec_d = torch.where(other_first, torch.where(own, d1, e2),
+                            torch.where(lex_less(e1, j1, d2, i2), e1, d2))
+        sec_i = torch.where(other_first, torch.where(own, i1, j2),
+                            torch.where(lex_less(e1, j1, d2, i2), j1, i2))
+        d1, i1 = torch.where(other_first, e1, d1), \
+            torch.where(other_first, j1, i1)
+        d2, i2 = sec_d, sec_i
+    d = torch.stack([d1[..., 0], d2[..., 0]], -1)
+    i = torch.stack([i1[..., 0], i2[..., 0]], -1)
+    real = torch.isfinite(d) & (i != imax)
+    return (torch.where(real, d, torch.full_like(d, inf)),
+            torch.where(real, i, torch.full_like(i, -1)).to(torch.int32))
+
+
+@pytest.mark.parametrize("k", [3, 10, 16])
+def test_h_selection_emulation_matches_plain_and_pallas(descs, k):
+    """Ragged M (1,200 train rows: 18 full tiles and one of 48), f32
+    distances, so the selection alone is held: indices identical to the
+    plain version and the JAX kernel, distances identical to the plain
+    version."""
+    q, t = descs
+    d, i, adm, _ = emulate_h_selection(_raw_dists(_t(q), _t(t)), k)
+    d_p, i_p = knn_plain(_t(q), _t(t), k, bf16=False)
+    _, i_j = jax_kp.knnk_fused(jnp.asarray(q), jnp.asarray(t), k,
+                               interpret=True, bf16=False)
+    np.testing.assert_array_equal(i.numpy(), i_p.numpy())
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(d.numpy(), d_p.numpy())
+    # the thresholds prune: most candidates never reach a queue
+    assert float(adm.mean()) < 0.5 * t.shape[0]
+
+
+@pytest.mark.parametrize("k", [3, 10, 16])
+def test_h_selection_emulation_ties_across_tiles_and_merges(k):
+    """Exact ties that straddle a tile and a queue merge: each of 30 rows
+    appears at 4 columns (c, c + 64, c + 67, c + 150), in other tiles or
+    other lanes' slices; equal distances must still come out lowest index
+    first."""
+    rng = np.random.default_rng(k)
+    base = rng.normal(size=(30, 24)).astype(np.float32)
+    t = rng.normal(size=(230, 24)).astype(np.float32)
+    first = np.arange(30) * 2
+    for off in (0, 64, 67, 150):
+        t[off + first] = base
+    q = base + 0.01 * rng.normal(size=(30, 24)).astype(np.float32)
+    d, i, _, _ = emulate_h_selection(_raw_dists(_t(q), _t(t)), k)
+    d_p, i_p = knn_plain(_t(q), _t(t), k, bf16=False)
+    _, i_j = jax_kp.knnk_fused(jnp.asarray(q), jnp.asarray(t), k,
+                               interpret=True, bf16=False)
+    np.testing.assert_array_equal(i.numpy(), i_p.numpy())
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(d.numpy(), d_p.numpy())
+    np.testing.assert_array_equal(i[:, :3].numpy(),
+                                  np.stack([first, first + 64, first + 67],
+                                           1))
+
+
+@pytest.mark.parametrize("k", [3, 10, 16])
+def test_h_selection_emulation_fewer_train_rows_than_k(k):
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(21, 16)).astype(np.float32)
+    t = rng.normal(size=(2, 16)).astype(np.float32)
+    d, i, _, _ = emulate_h_selection(_raw_dists(_t(q), _t(t)), k)
+    _, i_j = jax_kp.knnk_fused(jnp.asarray(q), jnp.asarray(t), k,
+                               interpret=True, bf16=False)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_j))
+    assert np.all(i[:, 2:].numpy() == -1)
+    assert np.all(np.isinf(d[:, 2:].numpy()))
+
+
+@pytest.mark.parametrize("c,n,m", [(3, 80, 80), (2, 45, 300)])
+def test_g_selection_emulation_matches_pallas_with_masked_rows(c, n, m):
+    """Kernel G's tiling and merge on the pose chunk's masks (invalid
+    queries at 1e6, invalid train rows at -1e6), against the JAX kernel in
+    interpret mode and the plain version; (2, 45, 300) spans two tiles of
+    256 train rows."""
+    rng = np.random.default_rng(n + m)
+    d = 64
+    q = rng.standard_normal((c, n, d)).astype(np.float32)
+    t = rng.standard_normal((c, m, d)).astype(np.float32)
+    t[:, :40] = q[:, rng.permutation(n)[:40]] + 0.1 * rng.standard_normal(
+        (c, 40, d))
+    t[:, 260 % m] = t[:, 3]                  # an exact tie across tiles
+    vq = rng.random((c, n)) < 0.8
+    vt = rng.random((c, m)) < 0.8
+    q = np.where(vq[..., None], q, 1e6).astype(np.float32)
+    t = np.where(vt[..., None], t, -1e6).astype(np.float32)
+    raw = torch.stack([_raw_dists(_t(q[b]), _t(t[b])) for b in range(c)])
+    dist, idx = emulate_g_selection(raw.clamp(min=0.0))
+    d_p, i_p = knn_plain(_t(q), _t(t), 2, bf16=False)
+    _, i_j = jax_kp.knn2_fused_batched(jnp.asarray(q), jnp.asarray(t),
+                                       interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), i_p.numpy())
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(dist.numpy(), d_p.numpy())
