@@ -35,9 +35,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    torch.profiler for the device's busy time and kernel launches, with
    each run's ATE/span and a hash of each of its G outputs. Counts are set
    to 0 just before and read just after the counted run; the run fails if
-   kernel G did not launch there, if any pose is non-finite, or if a
-   repeat of any pose chunk's G call on its own recorded inputs (masked
-   rows included) disagrees with G's plain version.
+   kernel G did not launch there, if any pose is non-finite, if the
+   refined poses or the refined ATE/span differ in any bit between the
+   counted, steady and profiled runs (the back end's sums have a fixed
+   order), or if a repeat of any pose chunk's G call on its own recorded
+   inputs (masked rows included) disagrees with G's plain version.
 5. Checks the outputs: distance matrix shape, finiteness and separation,
    the first 64 rows against the f32 route, a finite sweep, saved
    histories, a ranked row; finite diffs and PJ models, four exports that
@@ -47,7 +49,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    main path's shapes (A at the 256- and 8,192-pair blocks of compdist
    and run_reference_scale and at a small block of 64 pairs, B at 1 and
    48 steps of the PR grid with each of its three kernels' device time a
-   step from torch.profiler, E, F, H at the benchmark's shapes, F and H also at
+   step from torch.profiler, C at S 1 and 8 and D with their device time
+   a step and launches a call, E, F, H at the benchmark's shapes, F also
+   on the evaluation's own descriptors, F and H also at
    the 120-D export's width and at widths past one D chunk, G on the SLAM
    pose chunks' recorded inputs, also bit for bit against csrc/knn.cu's
    batched route, which G ran on before knn_batched.cu) and times
@@ -162,7 +166,8 @@ def _kernel_name(mangled):
     """The plain name of a kernel from its mangled symbol: the last name of
     a nested one (_ZN <len><name>... E, e.g. inside the anonymous
     namespace), or the name of one at file scope (_Z<len><name>), with its
-    integer and bool template arguments (I Li10E Lb0E E -> <10, 0>)."""
+    integer and bool template arguments (I Li10E Lb0E E -> <10, 0>),
+    after a leading float or bf16 type argument."""
     m = re.match(r"_ZN", mangled)
     pos, name = (3, mangled) if m else (2, mangled)
     while pos < len(mangled) and mangled[pos].isdigit():
@@ -171,10 +176,13 @@ def _kernel_name(mangled):
         pos += len(n) + int(n)
         if not m:
             break
-    targs = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    targs = re.match(r"I(f|13__nv_bfloat16)?((?:L[ib]\d+E)+)E",
+                     mangled[pos:])
     if targs:
-        name += "<" + ", ".join(re.findall(r"L[ib](\d+)E",
-                                           targs.group(1))) + ">"
+        kind = {"f": ["float"], "13__nv_bfloat16": ["bf16"]}.get(
+            targs.group(1), [])
+        name += "<" + ", ".join(kind + re.findall(r"L[ib](\d+)E",
+                                                  targs.group(2))) + ">"
     return name
 
 
@@ -203,19 +211,24 @@ def ptxas_summary(cuda_build):
                 lines.append(f"  ptxas[{lib}] {name}: " + json.dumps(facts))
             if "Performance Loss" in line:
                 lines.append(f"  ptxas[{lib}] note: {line.strip()}")
-    libs = {"ring_dist": [("ring_dist_wgmma", 0)],
-            "rda_wide": [("wide_f_wgmma", 1), ("wide_df_wgmma", 2)],
+    libs = {"ring_dist": [("ring_dist_wgmma", (0,))],
+            "rda_wide": [("wide_f_wgmma", (1,)), ("wide_df_wgmma", (2,))],
+            # kernel C at the single-run width, f32 and bf16 rows
+            "rda_narrow": [("narrow_persistent (F 5120, f32)", (5120, 4)),
+                           ("narrow_persistent (F 5120, bf16)", (5120, 2))],
             # kernel H at d 64, d 608 (the widest row the smoke checks) and
-            # d 1408 (queries streamed), kernel G at any width
-            "knn_topk": [("knnk_wgmma (d 64)", 64),
-                         ("knnk_wgmma (d 608)", 608),
-                         ("knnk_wgmma (d 1408)", 1408)],
-            "knn_batched": [("knn2_batched", 0)]}
+            # d 1408 (queries streamed), F's pair selection at d 64, kernel
+            # G at any width
+            "knn_topk": [("knnk_wgmma (d 64)", (64, 0)),
+                         ("knnk_wgmma pair selection (d 64)", (64, 1)),
+                         ("knnk_wgmma (d 608)", (608, 0)),
+                         ("knnk_wgmma (d 1408)", (1408, 0))],
+            "knn_batched": [("knn2_batched", (0,))]}
     for lib, kernels in libs.items():
         fn = getattr(cuda_build.load(lib), f"{lib}_smem_bytes")
         for kernel, which in kernels:
-            lines.append(f"  dynamic smem[{lib}] {kernel}: {fn(which)} bytes "
-                         f"a CTA")
+            lines.append(f"  dynamic smem[{lib}] {kernel}: {fn(*which)} "
+                         f"bytes a CTA")
     return lines
 
 
@@ -658,8 +671,12 @@ def kernel_checks(torch, ws, dist):
             bound_ms=bnd, bound_by=by,
             library_ms=lib_steps(pos32, neg32, s_dim, STEPS_PER_LOG,
                                  torch.float32),
+            bytes_per_step=2 * bt * f_dim * 4,
             shape=f"S {s_dim}, F {f_dim}, batch {bt}, f32, "
                   f"{STEPS_PER_LOG} steps")
+        results[f"C{s_dim}"].update(narrow_profile(
+            torch, lambda: fr.fused_block_train(*args, batch=bt),
+            STEPS_PER_LOG))
 
     w_d = torch.rand((8, f_dim), generator=gen).to(dev) * 1e-3
     hi = (n_pos - bt) // 128
@@ -680,8 +697,28 @@ def kernel_checks(torch, ws, dist):
             pos32, neg32, w_d, hi, 0, batch=bt), 5),
         bound_ms=bnd, bound_by=by,
         library_ms=lib_steps(pos32, neg32, 8, 1, torch.float32),
+        bytes_per_step=2 * bt * f_dim * 4,
         shape=f"S 8, F {f_dim}, batch {bt}, f32, 1 block")
+    results["D"].update(narrow_profile(
+        torch, lambda: fr.fused_block_grad(pos32, neg32, w_d, hi, 0,
+                                           batch=bt), 1))
     return results
+
+
+def narrow_profile(torch, fn, n_steps):
+    """Kernel C's (or D's) device time a step and its kernel launches a
+    call, from torch.profiler over 3 calls."""
+    prof = profile_calls(torch, fn, 3)
+    if not isinstance(prof["device_us_per_call"], float):
+        return dict(device_us_per_step="not measured",
+                    launches_per_call="not measured")
+    narrow = {k: v for k, v in prof["kernels"].items()
+              if k.startswith("narrow_persistent")}
+    return dict(device_us_per_step=sum(v["us"] for v in narrow.values())
+                / n_steps,
+                launches_per_call=sum(v["launches"]
+                                      for v in narrow.values()),
+                profiler=prof)
 
 
 KNN_N = 65_536                     # bench_matching's shape (bench.py:737)
@@ -772,10 +809,11 @@ def knn_row(torch, name, fn, k, n, d, bf16, seed, profile=False):
     q, t = clustered(torch, n, d, seed, scale=1.0 if bf16 else d ** -0.5)
     err, tol = hold_knn(torch, name, q, t, k, fn(q, t, bf16=bf16), bf16)
     el = 2 if bf16 else 4
-    # epilogue and selection: ~4 CUDA-core instructions per candidate
+    # epilogue and selection, CUDA-core instructions per candidate: ~3 in
+    # knn_topk.cu (bf16: an add, an fma, a min), ~4 in knn.cu (f32)
     bnd, by = bound_ms(2 * n * d * el + n * k * 8,
                        2 * n * n * d, "bf16" if bf16 else "f32",
-                       f32_instr=4 * n * n)
+                       f32_instr=(3 if bf16 else 4) * n * n)
     dt = torch.bfloat16 if bf16 else torch.float32
     qc, tc = q.to(dt), t.to(dt)
     row = dict(
@@ -793,6 +831,35 @@ def knn_row(torch, name, fn, k, n, d, bf16, seed, profile=False):
     del q, t, qc, tc
     torch.cuda.empty_cache()
     return row
+
+
+def f_eval_row(torch, q, t):
+    """Kernel F on the evaluation's own descriptors (the 64-D export on the
+    smoke's positive pairs, as phase 3's ratio test calls it), against its
+    plain version, with its times, bound, matmul yardstick and device time
+    and launches per call."""
+    from opencv_dlco_tpu_torch.ops.knn_fused import knn2_fused, knn_plain
+
+    n, d = q.shape
+    m = t.shape[0]
+    err, tol = hold_knn(torch, "F[evaluation]", q, t, 2, knn2_fused(q, t),
+                        True)
+    # knn_topk.cu's ~3 CUDA-core instructions per candidate
+    bnd, by = bound_ms(2 * (n + m) * d * 2 + n * 2 * 8, 2 * n * m * d,
+                       "bf16", f32_instr=3 * n * m)
+    qc, tc = q.to(torch.bfloat16), t.to(torch.bfloat16)
+    prof = profile_calls(torch, lambda: knn2_fused(q, t), 10)
+    prof["library"] = profile_calls(torch, lambda: torch.matmul(qc, tc.T), 10)
+    return dict(
+        name="knn2_fused", route="cuda",
+        source="opencv_dlco_tpu_torch/csrc/knn_topk.cu",
+        replaces="opencv_dlco_tpu/ops/knn_pallas.py:69", max_abs_err=err,
+        ms=time_ms(torch, lambda: knn2_fused(q, t), 20),
+        plain_ms=time_ms(torch, lambda: knn_plain(q, t, 2, bf16=True), 5),
+        bound_ms=bnd, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.matmul(qc, tc.T), 20),
+        shape=f"{n} x {m}, d {d}, k 2, bf16 (the evaluation's descriptors)",
+        tolerance=tol, profiler=prof)
 
 
 def kernel_checks_2(torch):
@@ -838,10 +905,10 @@ def kernel_checks_2(torch):
     def knnk10(q, t, bf16):
         return knnk_fused(q, t, 10, bf16=bf16)
 
-    # F runs csrc/knn.cu; H runs csrc/knn_topk.cu in bf16 and csrc/knn.cu
-    # in f32
+    # F and H run csrc/knn_topk.cu in bf16 (F: its pair selection) and
+    # csrc/knn.cu in f32
     for key, name, fn, k, line, src16 in (
-            ("F", "knn2_fused", knn2_fused, 2, 69, "knn.cu"),
+            ("F", "knn2_fused", knn2_fused, 2, 69, "knn_topk.cu"),
             ("H", "knnk_fused", knnk10, 10, 110, "knn_topk.cu")):
         base = dict(name=name, route="cuda",
                     replaces=f"opencv_dlco_tpu/ops/knn_pallas.py:{line}")
@@ -853,9 +920,8 @@ def kernel_checks_2(torch):
                 profile=d == 64))
         results[f"{key}f32"] = dict(b32, **knn_row(
             torch, f"{key}[f32]", fn, k, KNN_F32_N, 64, False, seed=k))
-        # the 120-D export's width (padded to 128 in bf16 mode) and widths
-        # past one D chunk (bf16 600 -> 608: F 3 chunks of 256, H 10 of 64;
-        # f32 576 in 5 chunks of 128)
+        # the 120-D export's width and widths past one D chunk (bf16 600:
+        # 10 chunks of 64; f32 576 in 5 chunks of 128)
         results[f"{key}120"] = dict(b16, **knn_row(
             torch, f"{key}[d=120]", fn, k, KNN_WIDE_N, 120, True, seed=k))
         results[f"{key}600"] = dict(b16, **knn_row(
@@ -919,6 +985,7 @@ def run_slam_path(torch, np, header_path, record):
     full = front + secs["slam_back_end"]
     return dict(
         header_sha1=hashlib.sha1(header.encode()).hexdigest()[:12],
+        refined_sha1=pose_sha1(refined),
         n_frames=SLAM_FRAMES, size=SLAM_SIZE, n_keypoints=cfg.n_keypoints,
         front_end_fps=SLAM_FRAMES / front, full_stack_fps=SLAM_FRAMES / full,
         n_keyframes=int(refined.keyframes.shape[0]),
@@ -934,6 +1001,12 @@ def run_slam_path(torch, np, header_path, record):
         matches_mean=float(np.mean([p.n_matches for p in odo.pairs])),
         inliers_mean=float(np.mean([p.n_inliers for p in odo.pairs]))), \
         secs, (frames, intr, model, cfg, centers_gt)
+
+
+def pose_sha1(res):
+    """A hash of a trajectory's poses, bit for bit."""
+    return hashlib.sha1(res.rotations.tobytes()
+                        + res.translations.tobytes()).hexdigest()[:12]
 
 
 def first_forward_ad_seconds(torch):
@@ -954,8 +1027,8 @@ def rerun_slam_path(torch, np, inputs, recorder):
     """bench_slam's steady-state figure: the same calls once more, timed;
     then once more under torch.profiler for the device's busy time and the
     kernel launches (idle share = 1 - busy / the timed run's wall). Each
-    run's ATE/span (odometry, refined); ``recorder(run)`` wraps G's call
-    site in run "steady" and "profiled"."""
+    run's ATE/span (odometry, refined) and a hash of its refined poses;
+    ``recorder(run)`` wraps G's call site in run "steady" and "profiled"."""
     from torch.autograd import DeviceType
     from opencv_dlco_tpu_torch.pipeline import slam
     from opencv_dlco_tpu_torch.pipeline.slam import (
@@ -976,7 +1049,7 @@ def rerun_slam_path(torch, np, inputs, recorder):
         finally:
             slam.knn2_fused_batched = inner
         return [ate_over_span(np, r.translations, centers_gt)
-                for r in (odo, refined)]
+                for r in (odo, refined)] + [pose_sha1(refined)]
 
     secs = {}
     ate = {"steady": run(timer(torch, secs), "steady")}
@@ -1247,6 +1320,7 @@ def main() -> int:
         facts2 = check_slice2(torch, np, out2)
         print("stages 7-11:", json.dumps(facts2), flush=True)
         header_64 = out2["exports"][64]["path"]
+        eval_qt = (out2["q"], out2["t"])
         del out2
 
         # -- SLAM at the bench row -----------------------------------------
@@ -1282,9 +1356,20 @@ def main() -> int:
         # the kernels' checks and profiles come before the SLAM profile
         res = kernel_checks(torch, ws, out["dist"])
         res.update(kernel_checks_2(torch))
+        res["Feval"] = f_eval_row(torch, *eval_qt)
         res.update(kernel_checks_3(torch, chunks))
         steady = rerun_slam_path(torch, np, slam_inputs, recorder)
         print("SLAM steady state:", json.dumps(steady), flush=True)
+        refined_by_run = {"counted": [facts3["ate_over_span"],
+                                      facts3["refined_sha1"]]}
+        refined_by_run.update(
+            (run, [a[1], a[2]])
+            for run, a in steady["ate_over_span_odometry_refined"].items())
+        print("SLAM refined ATE/span and poses by run:",
+              json.dumps(refined_by_run), flush=True)
+        if len({json.dumps(v) for v in refined_by_run.values()}) != 1:
+            raise AssertionError(f"SLAM refined trajectory differs between "
+                                 f"runs: {refined_by_run}")
         print("SLAM G outputs by run:", json.dumps(g_outputs), flush=True)
         del slam_inputs
         for key, r in res.items():
@@ -1293,11 +1378,12 @@ def main() -> int:
             secs, launches, res)), flush=True)
         table = []
         for key, row in (("A", "A256"), ("B", f"B{STEPS_PER_LOG}"),
-                         ("C", "C1"), ("D", "D"), ("E", "E"), ("F", "F64"),
+                         ("C", "C1"), ("D", "D"), ("E", "E"), ("F", "Feval"),
                          ("G", "G"), ("H", "H64")):
             r = {k: v for k, v in res[row].items()
                  if k not in ("shape", "tolerance", "sorted_ms",
                               "max_rel_err", "device_us_per_step",
+                              "launches_per_call", "bytes_per_step",
                               "profiler", "pose_chunks")}
             table.append({**r, "launches": launches[key] + launches2[key]
                           + launches3[key]})

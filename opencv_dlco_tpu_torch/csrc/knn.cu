@@ -1,11 +1,11 @@
-// Kernels F, G and H: fused k-nearest-neighbour search (distance products
-// and a running top-k in one pass).
+// Kernels F and H in f32: fused k-nearest-neighbour search (distance
+// products and a running top-k in one pass).
 //
 // Replaces the TPU kernels opencv_dlco_tpu/ops/knn_pallas.py::_knn2_kernel
-// (entry points knn2_fused, kernel F, and with a batch knn2_fused_batched,
-// kernel G, the SLAM pose chunk's C matching problems) and
-// ::_knnk_kernel (entry point knnk_fused), both driven by _fused_call. For
-// queries q (B, N, D) and train rows t (B, M, D):
+// (entry point knn2_fused, kernel F) and ::_knnk_kernel (entry point
+// knnk_fused, kernel H), both driven by _fused_call, in their f32 mode
+// (HIGHEST parity); the bf16 modes run knn_topk.cu. For queries q (B, N, D)
+// and train rows t (B, M, D):
 //   dist[n, m] = max(|q_n|^2 + |t_m|^2 - 2 q_n . t_m, 0)
 // and per query the k smallest (dist, m) in lexicographic order (equal
 // distances go to the lowest train index, as the TPU kernels' masked-min
@@ -13,29 +13,26 @@
 // slots of a query with fewer than k real neighbours. No (N, M) matrix
 // exists anywhere.
 //
-// Modes: bf16 (q and t arrive rounded to bf16; the norms are sums of the
-// rounded values in f32; the products run on the tensor cores as mma.sync
-// m16n8k16 with f32 accumulation) and f32 (true f32 FFMA products, no
-// TF32).
+// Products are true f32 FFMA (no TF32); the norms are f32 sums.
 //
-// Bound on an H100 at 65,536 x 65,536, d = 64, bf16: the products are
-// 2 N M d = 0.55 TFLOP, 0.56 ms at 989 TFLOP/s; the epilogue and the
-// selection are ~4 instructions per (n, m) on the CUDA cores, none an FMA,
-// 17 G, 0.51 ms at 33.5 T instructions/s; the inputs are 17 MB. So the
-// products bound it, and the selection's share comes close.
+// Bound on an H100 at 8,192 x 8,192, d = 64: the products are 2 N M d =
+// 8.6 GFLOP, 0.13 ms at 67 TFLOP/s; the epilogue and the selection are ~4
+// instructions per (n, m) on the CUDA cores, none an FMA, 0.27 G, 8 us at
+// 33.5 T instructions/s. So the products bound it.
 //
 // Design: a first pass writes every row's squared norm (one warp per row).
 // Then a CTA owns 128 queries and loops over the train rows in tiles of 64;
 // that loop replaces the TPU grid's sequential train axis. D goes in chunks
-// of at most DC elements (256 bf16, 128 f32), so any width fits shared
-// memory: with one chunk (every exported width) the queries stay in shared
-// memory for the whole run; with more, each step (tile, chunk) copies the
+// of at most 128 elements, so any width fits shared memory: with one chunk
+// (every exported width) the queries stay in shared memory for the whole
+// run; with more, each step (tile, chunk) copies the
 // query chunk beside the train chunk and the products accumulate over the
 // chunks of a tile. Each step reaches shared memory by cp.async into one of
 // two buffers, so the next step's copy is in flight while this one
 // computes, and one barrier per step orders the two. A warp owns 16
-// queries x the tile's 64 rows (bf16: 8 mma n8 fragments; f32: the same
-// fragment layout by FFMA), and each thread turns its own accumulators
+// queries x the tile's 64 rows in mma.sync's m16n8 accumulator layout, by
+// FFMA (with g = lane / 4, q = lane % 4, slice j: rows g and g + 8, columns
+// 8 j + 2 q + {0, 1}), and each thread turns its own accumulators
 // into distances and folds them into a sorted top-KMAX (KMAX = 2, 4, 8 or
 // 16 >= k) per query row it holds, in registers: no distance tile in shared
 // memory. At the end the four lists of a query (one per thread of a quad)
@@ -43,8 +40,6 @@
 // strides. Ragged edges are bounds checks: padding rows are zero-filled by
 // the copies and never selected.
 #include <math.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -59,52 +54,34 @@ __host__ __device__ constexpr size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
 }
 
-// shared-memory row stride in elements: bf16 rows padded by 8 (conflict-free
-// fragments, 16-byte aligned rows), f32 rows by 1 (odd stride)
-template <bool BF16>
-__host__ __device__ constexpr int row_stride(int d) {
-  return BF16 ? d + 8 : d + 1;
-}
-
-template <bool BF16>
-__host__ __device__ size_t rows_bytes(int rows, int d) {
-  return align16(static_cast<size_t>(rows) * row_stride<BF16>(d) *
-                 (BF16 ? 2 : 4));
-}
-
 // widest D chunk in shared memory (two query and two train chunks fit)
-template <bool BF16>
-__host__ __device__ constexpr int max_chunk() {
-  return BF16 ? 256 : 128;
+constexpr int MAX_CHUNK = 128;
+
+// shared-memory row stride in elements: padded by 1 (odd stride)
+__host__ __device__ constexpr int row_stride(int d) { return d + 1; }
+
+__host__ __device__ size_t rows_bytes(int rows, int d) {
+  return align16(static_cast<size_t>(rows) * row_stride(d) * 4);
 }
 
-template <bool BF16>
 __host__ __device__ int n_chunks(int d) {
-  return (d + max_chunk<BF16>() - 1) / max_chunk<BF16>();
+  return (d + MAX_CHUNK - 1) / MAX_CHUNK;
 }
 
 // the width of a chunk's rows in shared memory
-template <bool BF16>
 __host__ __device__ int chunk_width(int d) {
-  return n_chunks<BF16>(d) == 1 ? d : max_chunk<BF16>();
+  return n_chunks(d) == 1 ? d : MAX_CHUNK;
 }
 
 // one query region (resident) or two (one per buffer), two train regions
-template <bool BF16>
 size_t smem_bytes(int d) {
-  const int dc = chunk_width<BF16>(d);
-  return (n_chunks<BF16>(d) == 1 ? 1 : 2) * rows_bytes<BF16>(TQ, dc) +
-         2 * rows_bytes<BF16>(TB, dc);
+  const int dc = chunk_width(d);
+  return (n_chunks(d) == 1 ? 1 : 2) * rows_bytes(TQ, dc) +
+         2 * rows_bytes(TB, dc);
 }
 
 // global -> shared copies that bypass registers; src_bytes 0 fills the
 // destination with zeros (a padding row)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -121,27 +98,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // start the copies of columns k0 .. k0 + cw - 1 of rows r0 .. r0 + ROWS - 1
 // (of `rows`) into dst at row stride str, NTHREADS / ROWS threads per row;
 // rows past the end are zero-filled
-template <bool BF16, int ROWS>
+template <int ROWS>
 __device__ __forceinline__ void load_rows_async(unsigned char* dst_raw,
-                                                const void* x, int r0,
+                                                const float* base, int r0,
                                                 int rows, int k0, int cw,
                                                 int str, long long rs) {
   constexpr int TPR = NTHREADS / ROWS;
   const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
   const bool real = r0 + r < rows;
-  if (BF16) {
-    const bf16* base = static_cast<const bf16*>(x);
-    const bf16* src = real ? base + (r0 + r) * rs + k0 : base;
-    bf16* dst = reinterpret_cast<bf16*>(dst_raw) + r * str;
-    for (int j = part; j < cw / 8; j += TPR)
-      cp_async16(dst + 8 * j, real ? src + 8 * j : base, real ? 16 : 0);
-  } else {
-    const float* base = static_cast<const float*>(x);
-    const float* src = real ? base + (r0 + r) * rs + k0 : base;
-    float* dst = reinterpret_cast<float*>(dst_raw) + r * str;
-    for (int kk = part; kk < cw; kk += TPR)
-      cp_async4(dst + kk, real ? src + kk : base, real ? 4 : 0);
-  }
+  const float* src = real ? base + (r0 + r) * rs + k0 : base;
+  float* dst = reinterpret_cast<float*>(dst_raw) + r * str;
+  for (int kk = part; kk < cw; kk += TPR)
+    cp_async4(dst + kk, real ? src + kk : base, real ? 4 : 0);
 }
 
 __device__ __forceinline__ bool lex_less(float d, int i, float e, int j) {
@@ -214,17 +182,16 @@ __device__ __forceinline__ void merge_quad(float (&ld)[KMAX],
 }
 
 // squared norm of every row of x (B, rows, D): one warp per row
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-sq_norms_kernel(const T* __restrict__ x, float* __restrict__ out, int rows,
-                int d, long long bs, long long rs) {
+sq_norms_kernel(const float* __restrict__ x, float* __restrict__ out,
+                int rows, int d, long long bs, long long rs) {
   const int r = blockIdx.x * (NTHREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
-  const T* p = x + blockIdx.z * bs + r * rs;
+  const float* p = x + blockIdx.z * bs + r * rs;
   float s = 0.f;
   for (int kk = lane; kk < d; kk += 32) {
-    const float v = to_f32(p[kk]);
+    const float v = p[kk];
     s = fmaf(v, v, s);
   }
 #pragma unroll
@@ -233,9 +200,9 @@ sq_norms_kernel(const T* __restrict__ x, float* __restrict__ out, int rows,
   if (lane == 0) out[static_cast<size_t>(blockIdx.z) * rows + r] = s;
 }
 
-template <bool BF16, int KMAX>
+template <int KMAX>
 __global__ void __launch_bounds__(NTHREADS, KMAX <= 2 ? 4 : 2)
-knn_kernel(const void* __restrict__ qv, const void* __restrict__ tv,
+knn_kernel(const float* __restrict__ qv, const float* __restrict__ tv,
            const float* __restrict__ qn, const float* __restrict__ tn,
            float* __restrict__ out_d, int* __restrict__ out_i, int n, int m,
            int d, int k, long long q_bs, long long q_rs, long long t_bs,
@@ -246,16 +213,15 @@ knn_kernel(const void* __restrict__ qv, const void* __restrict__ tv,
   const int g = lane >> 2, qq = lane & 3;
   const int b = blockIdx.z;
   const int n0 = blockIdx.x * TQ;
-  const int nch = n_chunks<BF16>(d);
-  const int dc = chunk_width<BF16>(d);
-  const int str = row_stride<BF16>(dc);
-  const size_t qbytes = rows_bytes<BF16>(TQ, dc);
-  const size_t tbytes = rows_bytes<BF16>(TB, dc);
+  const int nch = n_chunks(d);
+  const int dc = chunk_width(d);
+  const int str = row_stride(dc);
+  const size_t qbytes = rows_bytes(TQ, dc);
+  const size_t tbytes = rows_bytes(TB, dc);
   unsigned char* qs_raw = smem;
   unsigned char* ts_raw = smem + (nch == 1 ? 1 : 2) * qbytes;
-  typedef typename std::conditional<BF16, bf16, float>::type T;
-  const T* q = static_cast<const T*>(qv) + b * q_bs;
-  const T* t = static_cast<const T*>(tv) + b * t_bs;
+  const float* q = qv + b * q_bs;
+  const float* t = tv + b * t_bs;
   tn += static_cast<size_t>(b) * m;
 
   // a step is (train tile from row m0, D chunk c); step s's copies go to
@@ -264,14 +230,12 @@ knn_kernel(const void* __restrict__ qv, const void* __restrict__ tv,
   auto load_step = [&](int m0, int c, int buf) {
     const int k0 = c * dc, cw = min(dc, d - k0);
     if (nch > 1)
-      load_rows_async<BF16, TQ>(qs_raw + buf * qbytes, q, n0, n, k0, cw, str,
-                                q_rs);
-    load_rows_async<BF16, TB>(ts_raw + buf * tbytes, t, m0, m, k0, cw, str,
-                              t_rs);
+      load_rows_async<TQ>(qs_raw + buf * qbytes, q, n0, n, k0, cw, str, q_rs);
+    load_rows_async<TB>(ts_raw + buf * tbytes, t, m0, m, k0, cw, str, t_rs);
     cp_async_commit();
   };
   // one chunk: the CTA's queries, once, in the first step's copy group
-  if (nch == 1) load_rows_async<BF16, TQ>(qs_raw, q, n0, n, 0, d, str, q_rs);
+  if (nch == 1) load_rows_async<TQ>(qs_raw, q, n0, n, 0, d, str, q_rs);
   if (steps > 0) load_step(0, 0, 0);
 
   // this thread's two query rows and their norms
@@ -307,26 +271,7 @@ knn_kernel(const void* __restrict__ qv, const void* __restrict__ tv,
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
     }
-    if (BF16) {
-      const bf16* qs = reinterpret_cast<const bf16*>(qcur);
-      const bf16* ts = reinterpret_cast<const bf16*>(cur);
-      for (int kk = 0; kk < cw; kk += 16) {
-        uint32_t a[4];
-        const bf16* ab = &qs[r0 * str + kk + qq * 2];
-        a[0] = ld_u32(ab);
-        a[1] = ld_u32(ab + 8 * str);
-        a[2] = ld_u32(ab + 8);
-        a[3] = ld_u32(ab + 8 * str + 8);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const bf16* bb = &ts[(j * 8 + g) * str + kk + qq * 2];
-          uint32_t bfr[2];
-          bfr[0] = ld_u32(bb);
-          bfr[1] = ld_u32(bb + 8);
-          mma_bf16_16816(acc[j], a, bfr);
-        }
-      }
-    } else {
+    {
       const float* qs = reinterpret_cast<const float*>(qcur);
       const float* ts = reinterpret_cast<const float*>(cur);
       for (int kk = 0; kk < cw; ++kk) {
@@ -370,24 +315,21 @@ knn_kernel(const void* __restrict__ qv, const void* __restrict__ tv,
                    out_d + obase + 8 * k, out_i + obase + 8 * k);
 }
 
-template <typename T>
-int launch_norms(const void* x, float* out, int batch, int rows, int d,
+int launch_norms(const float* x, float* out, int batch, int rows, int d,
                  long long bs, long long rs, cudaStream_t stream) {
   if (rows == 0) return 0;
   const int per = NTHREADS / 32;
   const dim3 grid((rows + per - 1) / per, 1, batch);
-  sq_norms_kernel<T><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const T*>(x), out, rows, d, bs, rs);
+  sq_norms_kernel<<<grid, NTHREADS, 0, stream>>>(x, out, rows, d, bs, rs);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16, int KMAX>
-int launch(const void* q, const void* t, float* qn, float* tn, void* od,
+template <int KMAX>
+int launch(const float* q, const float* t, float* qn, float* tn, void* od,
            void* oi, int batch, int n, int m, int d, int k, long long q_bs,
            long long q_rs, long long t_bs, long long t_rs,
            cudaStream_t stream) {
-  typedef typename std::conditional<BF16, bf16, float>::type T;
-  const size_t smem = smem_bytes<BF16>(d);
+  const size_t smem = smem_bytes(d);
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -396,11 +338,11 @@ int launch(const void* q, const void* t, float* qn, float* tn, void* od,
   if (e != cudaSuccess) return static_cast<int>(e);
   if (smem > static_cast<size_t>(optin))
     return static_cast<int>(cudaErrorInvalidValue);
-  int rc = launch_norms<T>(q, qn, batch, n, d, q_bs, q_rs, stream);
+  int rc = launch_norms(q, qn, batch, n, d, q_bs, q_rs, stream);
   if (rc) return rc;
-  rc = launch_norms<T>(t, tn, batch, m, d, t_bs, t_rs, stream);
+  rc = launch_norms(t, tn, batch, m, d, t_bs, t_rs, stream);
   if (rc) return rc;
-  auto kern = knn_kernel<BF16, KMAX>;
+  auto kern = knn_kernel<KMAX>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -411,45 +353,30 @@ int launch(const void* q, const void* t, float* qn, float* tn, void* od,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16>
-int dispatch_k(const void* q, const void* t, float* qn, float* tn, void* od,
-               void* oi, int batch, int n, int m, int d, int k,
-               long long q_bs, long long q_rs, long long t_bs, long long t_rs,
-               cudaStream_t s) {
-  if (k <= 2)
-    return launch<BF16, 2>(q, t, qn, tn, od, oi, batch, n, m, d, k, q_bs,
-                           q_rs, t_bs, t_rs, s);
-  if (k <= 4)
-    return launch<BF16, 4>(q, t, qn, tn, od, oi, batch, n, m, d, k, q_bs,
-                           q_rs, t_bs, t_rs, s);
-  if (k <= 8)
-    return launch<BF16, 8>(q, t, qn, tn, od, oi, batch, n, m, d, k, q_bs,
-                           q_rs, t_bs, t_rs, s);
-  return launch<BF16, 16>(q, t, qn, tn, od, oi, batch, n, m, d, k, q_bs,
-                          q_rs, t_bs, t_rs, s);
-}
-
 }  // namespace
 
-// q (B, N, D) and t (B, M, D), bf16 when bf16 != 0 else f32, rows
-// contiguous in D, element (b, i, :) at base + b * bs + i * rs (bf16: bs and
-// rs multiples of 8 and a 16-byte aligned base); qn (B, N) and tn (B, M) f32
-// scratch for the norms; od (B, N, k) f32 and oi (B, N, k) i32 contiguous.
-// 1 <= k <= 16, N >= 1, D >= 1 of any width (bf16 mode: D % 16 == 0).
-// Returns a CUDA error code (0 on success) after the launches;
-// cudaErrorInvalidValue for arguments outside these limits or a
-// shared-memory need above the device's opt-in limit.
-extern "C" int knn_launch(int bf16, const void* q, const void* t, void* qn,
-                          void* tn, void* od, void* oi, int batch, int n,
-                          int m, int d, int k, long long q_bs, long long q_rs,
+// q (B, N, D) and t (B, M, D) f32, rows contiguous in D, element (b, i, :)
+// at base + b * bs + i * rs; qn (B, N) and tn (B, M) f32 scratch for the
+// norms; od (B, N, k) f32 and oi (B, N, k) i32 contiguous. 1 <= k <= 16,
+// N >= 1, D >= 1 of any width. Returns a CUDA error code (0 on success)
+// after the launches; cudaErrorInvalidValue for arguments outside these
+// limits or a shared-memory need above the device's opt-in limit.
+extern "C" int knn_launch(const void* q, const void* t, void* qn, void* tn,
+                          void* od, void* oi, int batch, int n, int m, int d,
+                          int k, long long q_bs, long long q_rs,
                           long long t_bs, long long t_rs, void* stream) {
-  if (k < 1 || k > 16 || n < 1 || batch < 1 || d < 1 || (bf16 && d % 16))
+  if (k < 1 || k > 16 || n < 1 || batch < 1 || d < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  const float* tf = static_cast<const float*>(t);
   float* qnf = static_cast<float*>(qn);
   float* tnf = static_cast<float*>(tn);
-  return bf16 ? dispatch_k<true>(q, t, qnf, tnf, od, oi, batch, n, m, d, k,
-                                 q_bs, q_rs, t_bs, t_rs, s)
-              : dispatch_k<false>(q, t, qnf, tnf, od, oi, batch, n, m, d, k,
-                                  q_bs, q_rs, t_bs, t_rs, s);
+#define KNN_ARGS                                                        \
+  qf, tf, qnf, tnf, od, oi, batch, n, m, d, k, q_bs, q_rs, t_bs, t_rs, s
+  if (k <= 2) return launch<2>(KNN_ARGS);
+  if (k <= 4) return launch<4>(KNN_ARGS);
+  if (k <= 8) return launch<8>(KNN_ARGS);
+  return launch<16>(KNN_ARGS);
+#undef KNN_ARGS
 }

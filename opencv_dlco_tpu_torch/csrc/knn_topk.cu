@@ -1,9 +1,10 @@
-// Kernel H on Hopper: top-k nearest neighbours (1 <= k <= 16) of bf16
-// descriptors, products on wgmma and a pruned, deferred selection.
+// Kernels H and F on Hopper: top-k nearest neighbours (1 <= k <= 16) of
+// bf16 descriptors, products on wgmma and a pruned, deferred selection.
 //
-// Replaces the TPU kernel opencv_dlco_tpu/ops/knn_pallas.py::_knnk_kernel
-// (entry point knnk_fused) in its bf16 mode, at every width; the f32 mode
-// stays on knn.cu's kernel. For queries
+// Replaces the TPU kernels opencv_dlco_tpu/ops/knn_pallas.py::_knnk_kernel
+// (entry point knnk_fused, kernel H) and ::_knn2_kernel (entry point
+// knn2_fused, kernel F: the same function at k = 2) in their bf16 mode, at
+// every width; the f32 modes stay on knn.cu's kernel. For queries
 // q (B, N, D) and train rows t (B, M, D), rounded to bf16:
 //   dist[n, m] = max(|q_n|^2 + |t_m|^2 - 2 q_n . t_m, 0)
 // with the norms summed in f32 from the rounded values, and per query the k
@@ -23,7 +24,8 @@
 // (NCW = 3 consumer warpgroups of 64 for k <= 12, 2 for larger k, 1 for
 // rows too wide for those queries and their queues), loaded by TMA in
 // 64-element K chunks of 128-byte swizzled rows, and walks the train rows
-// in tiles of 64, one stage per (tile, K chunk), through a ring of TMA
+// in tiles of 64 (128 with the pair selection, below), one stage per
+// (tile, K chunk), through a ring of TMA
 // stages behind mbarriers. Rows too wide for even one warpgroup's resident
 // queries (past 1,344 elements on an H100) stream them instead: each stage
 // then carries the query chunk beside the train chunk, re-read from L2 for
@@ -60,6 +62,23 @@
 // KMAX-deep insertions, sits once in the loop, runs rarely, and handles
 // many admissions at a time. At the end the queues merge and the four
 // lists of each row merge through shuffles.
+//
+// Pair selection (KMAX = 2: kernel F, and H at k <= 2): a lane's list is
+// its two best (dist, m) per row, in registers, and there are no queues.
+// The threshold is the same bound (at k = 2: the minimum of the own
+// second entry, the quad's minimum second entry and the quad's maximum
+// first entry). The fast path is unchanged; the warp-uniform slow path
+// folds the tile's columns of each row that has a candidate below its
+// threshold straight into the two-entry lists, branch-free and in column
+// order, and refreshes the thresholds. A lane admits about 2 ln(M / 8)
+// candidates a row, but a warp holds 64 lane-rows, so it takes the slow
+// path on most of the first tiles and on a minority later. With the
+// lists this small, a tile is 128
+// train rows (one wgmma m64n128k16 a k16 step, 64 accumulators a thread):
+// half the tiles, so half the per-tile waits, votes and barriers, and a
+// product shape that keeps the tensor cores busier. When 192-query CTAs
+// would not fill the card (small N), the pair selection runs 64 queries
+// a CTA.
 #include <math.h>
 
 #include "common.cuh"
@@ -68,9 +87,9 @@
 namespace {
 
 constexpr int BN = 64;                      // train rows per tile
+constexpr int BN_PAIR = 128;                // ... with the pair selection
 constexpr int KC = 64;                      // bf16 elements per K chunk
 constexpr int WGQ = 64;                     // queries per consumer warpgroup
-constexpr int STAGE_BYTES = BN * KC * 2;    // 8 KB of train rows per stage
 constexpr int MAX_STAGES = 8;
 constexpr int NTS = 4;                      // norm slots (tiles in flight)
 constexpr int QL = 10;                      // queued column pairs per lane and row
@@ -83,24 +102,35 @@ __host__ __device__ constexpr int q_chunk_bytes(int ncw) {
 }
 
 // the consumers' queues: (row, slot, consumer thread) of a column pair
-// (dist or +inf, dist or +inf, first column, unused)
-__host__ __device__ constexpr int queue_bytes(int ncw) {
-  return 2 * QL * ncw * 128 * 16;
+// (dist or +inf, dist or +inf, first column, unused); none for the pair
+// selection
+__host__ __device__ constexpr int queue_bytes(int ncw, bool pair) {
+  return pair ? 0 : 2 * QL * ncw * 128 * 16;
+}
+
+// train rows per tile, and the bytes of a tile's K chunk (8 or 16 KB)
+__host__ __device__ constexpr int tile_rows(bool pair) {
+  return pair ? BN_PAIR : BN;
+}
+__host__ __device__ constexpr int train_chunk_bytes(bool pair) {
+  return tile_rows(pair) * KC * 2;
 }
 
 // bytes of one stage: a train chunk, and with streamed queries the CTA's
 // query chunk after it
-__host__ __device__ constexpr int stage_bytes(int ncw, bool qstream) {
-  return STAGE_BYTES + (qstream ? q_chunk_bytes(ncw) : 0);
+__host__ __device__ constexpr int stage_bytes(int ncw, bool qstream,
+                                              bool pair) {
+  return train_chunk_bytes(pair) + (qstream ? q_chunk_bytes(ncw) : 0);
 }
 
 // dynamic shared memory: alignment slack, the resident queries (none when
 // streamed), the stage ring, the queues, the norm slots and the barriers
 __host__ __device__ constexpr size_t smem_bytes(int ncw, int nch, int stages,
-                                                bool qstream) {
+                                                bool qstream, bool pair) {
   return 1024 + (qstream ? 0 : static_cast<size_t>(nch) * q_chunk_bytes(ncw)) +
-         static_cast<size_t>(stages) * stage_bytes(ncw, qstream) +
-         queue_bytes(ncw) + NTS * BN * 4 + 8 * (2 * MAX_STAGES + 1 + 2 * NTS);
+         static_cast<size_t>(stages) * stage_bytes(ncw, qstream, pair) +
+         queue_bytes(ncw, pair) + NTS * tile_rows(pair) * 4 +
+         8 * (2 * MAX_STAGES + 1 + 2 * NTS);
 }
 
 __device__ __forceinline__ bool lex_less(float d, int i, float e, int j) {
@@ -215,6 +245,28 @@ __device__ __forceinline__ void queue_pairs(const float (&acc)[32], int h,
   }
 }
 
+// fold a tile's columns of one row (accumulators 4 j + h and 4 j + h + 1,
+// columns cb + 8 j + {0, 1}) into a two-entry list, in column order and
+// without branches: a candidate below an entry shifts it down (equal
+// distances keep the listed, lower column in front)
+template <int NA>
+__device__ __forceinline__ void fold_pairs(const float (&acc)[NA], int h,
+                                           float (&ld)[2], int (&li)[2],
+                                           int cb) {
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float v = fmaxf(acc[4 * j + h + e], 0.f);
+      const int col = cb + 8 * j + e;
+      const bool lt0 = v < ld[0], lt1 = v < ld[1];
+      ld[1] = lt0 ? ld[0] : (lt1 ? v : ld[1]);
+      li[1] = lt0 ? li[0] : (lt1 ? col : li[1]);
+      ld[0] = lt0 ? v : ld[0];
+      li[0] = lt0 ? col : li[0];
+    }
+}
+
 // QS: the queries stream through the stages (else they are resident)
 template <int KMAX, int NCW, bool QS>
 __global__ void __launch_bounds__(128 * (NCW + 1), 1)
@@ -224,7 +276,12 @@ knnk_wgmma(const __grid_constant__ CUtensorMap tm_q,
   constexpr int TQ = NCW * WGQ;
   constexpr int QCB = q_chunk_bytes(NCW);
   constexpr int CT = 128 * NCW;  // consumer threads
-  constexpr int sb = stage_bytes(NCW, QS);
+  constexpr bool PAIR = KMAX == 2;
+  constexpr int TBN = tile_rows(PAIR);            // train rows per tile
+  constexpr int TCB = train_chunk_bytes(PAIR);
+  constexpr int NA = TBN / 2;                     // accumulators a thread
+  constexpr int sb = stage_bytes(NCW, QS, PAIR);
+  constexpr int QB = queue_bytes(NCW, PAIR);
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t qs = (raw + 1023u) & ~1023u;  // resident query chunks
@@ -233,16 +290,15 @@ knnk_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t st0 = qs + qres;  // stage ring
   uint8_t* const st_ptr = qs_ptr + qres;
   float4* const queue = reinterpret_cast<float4*>(st_ptr + stages * sb);
-  float* const nt_ring =
-      reinterpret_cast<float*>(st_ptr + stages * sb + queue_bytes(NCW));
-  const uint32_t bars = st0 + stages * sb + queue_bytes(NCW) + NTS * BN * 4;
+  float* const nt_ring = reinterpret_cast<float*>(st_ptr + stages * sb + QB);
+  const uint32_t bars = st0 + stages * sb + QB + NTS * TBN * 4;
   const uint32_t full = bars, empty = bars + 8 * MAX_STAGES;
   const uint32_t qfull = bars + 16 * MAX_STAGES;
   const uint32_t ntfull = qfull + 8, ntempty = ntfull + 8 * NTS;
 
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * TQ;
-  const int ntiles = (m + BN - 1) / BN;
+  const int ntiles = (m + TBN - 1) / TBN;
   const int steps = ntiles * nch;
 
   if (threadIdx.x == 0) {
@@ -273,29 +329,40 @@ knnk_wgmma(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(empty + 8 * s, ((it / stages) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, sb);
         tma_load_2d(st0 + s * sb, &tm_t, full + 8 * s, c * KC,
-                    b * m + t * BN);
+                    b * m + t * TBN);
         if (QS)
-          tma_load_2d(st0 + s * sb + STAGE_BYTES, &tm_q, full + 8 * s, c * KC,
+          tma_load_2d(st0 + s * sb + TCB, &tm_q, full + 8 * s, c * KC,
                       b * n + n0);
       }
-    } else if (warp == 1 || warp == 2) {  // train norms, one row a lane
+    } else if (warp == 1 || warp == 2) {  // train norms, rows r + 64 h
+      constexpr int RL = TBN / N_NORM_LANES;      // rows a lane
       const int r = (warp - 1) * 32 + lane;
       const int rsw = r & 7;
       for (int t = 0; t < ntiles; ++t) {
         const int slot = t % NTS;
         mbar_wait(ntempty + 8 * slot, ((t / NTS) & 1) ^ 1);
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        float acc[RL][4] = {};
         for (int c = 0; c < nch; ++c) {
           const int it = t * nch + c, s = it % stages;
           mbar_wait(full + 8 * s, (it / stages) & 1);
-          const uint8_t* row =
-              st_ptr + s * sb + (r >> 3) * 1024 + rsw * 128;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) add_sq8(row + ((j ^ rsw) << 4), acc);
+          for (int h = 0; h < RL; ++h) {
+            const uint8_t* row = st_ptr + s * sb +
+                                 ((r + N_NORM_LANES * h) >> 3) * 1024 +
+                                 rsw * 128;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              add_sq8(row + ((j ^ rsw) << 4), acc[h]);
+          }
           mbar_arrive(empty + 8 * s);
         }
-        nt_ring[slot * BN + r] =
-            t * BN + r < m ? (acc[0] + acc[1]) + (acc[2] + acc[3]) : INFINITY;
+#pragma unroll
+        for (int h = 0; h < RL; ++h) {
+          const int rr = r + N_NORM_LANES * h;
+          nt_ring[slot * TBN + rr] =
+              t * TBN + rr < m ? (acc[h][0] + acc[h][1]) + (acc[h][2] + acc[h][3])
+                               : INFINITY;
+        }
         mbar_arrive(ntfull + 8 * slot);
       }
     }
@@ -350,26 +417,9 @@ knnk_wgmma(const __grid_constant__ CUtensorMap tm_q,
   int cnt0 = 0, cnt1 = 0;
   float thr0 = INFINITY, thr1 = INFINITY;
 
-  // insert every lane's queued entries into its lists, then refresh the
-  // thresholds: the own tail, the quad's minimum tail and maximum
-  // ceil(k/4)-th entry (warp-uniform)
-  auto merge_queues = [&]() {
-    const int rounds = __reduce_max_sync(0xffffffffu, max(cnt0, cnt1));
-    for (int s = 0; s < rounds; ++s) {
-      if (s < cnt0) {
-        const float4 e = q0[s * CT];
-        insert_sorted<KMAX>(ld0, li0, fmaxf(e.x, 0.f), __float_as_int(e.z));
-        insert_sorted<KMAX>(ld0, li0, fmaxf(e.y, 0.f),
-                            __float_as_int(e.z) + 1);
-      }
-      if (s < cnt1) {
-        const float4 e = q1[s * CT];
-        insert_sorted<KMAX>(ld1, li1, fmaxf(e.x, 0.f), __float_as_int(e.z));
-        insert_sorted<KMAX>(ld1, li1, fmaxf(e.y, 0.f),
-                            __float_as_int(e.z) + 1);
-      }
-    }
-    cnt0 = cnt1 = 0;
+  // refresh the thresholds from the lists: the own tail, the quad's
+  // minimum tail and maximum ceil(k/4)-th entry (warp-uniform)
+  auto refresh = [&]() {
     float v0 = INFINITY, v1 = INFINITY;
 #pragma unroll
     for (int s = 0; s < KMAX; ++s)
@@ -390,28 +440,51 @@ knnk_wgmma(const __grid_constant__ CUtensorMap tm_q,
     thr0 = fminf(thr0, fminf(v0, m0));
     thr1 = fminf(thr1, fminf(v1, m1));
   };
+  // insert every lane's queued entries into its lists, then refresh the
+  // thresholds (warp-uniform)
+  auto merge_queues = [&]() {
+    const int rounds = __reduce_max_sync(0xffffffffu, max(cnt0, cnt1));
+    for (int s = 0; s < rounds; ++s) {
+      if (s < cnt0) {
+        const float4 e = q0[s * CT];
+        insert_sorted<KMAX>(ld0, li0, fmaxf(e.x, 0.f), __float_as_int(e.z));
+        insert_sorted<KMAX>(ld0, li0, fmaxf(e.y, 0.f),
+                            __float_as_int(e.z) + 1);
+      }
+      if (s < cnt1) {
+        const float4 e = q1[s * CT];
+        insert_sorted<KMAX>(ld1, li1, fmaxf(e.x, 0.f), __float_as_int(e.z));
+        insert_sorted<KMAX>(ld1, li1, fmaxf(e.y, 0.f),
+                            __float_as_int(e.z) + 1);
+      }
+    }
+    cnt0 = cnt1 = 0;
+    refresh();
+  };
 
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   // descriptors of the warpgroup's first query chunk (resident, or in
   // stage 0 when streamed) and of stage 0's train chunk; a byte offset o
   // inside shared memory advances a descriptor by o / 16
   const uint64_t da0 = sw128_desc(
-      (QS ? st0 + STAGE_BYTES : qs) + cw * (QCB / NCW), 16, 1024);
+      (QS ? st0 + TCB : qs) + cw * (QCB / NCW), 16, 1024);
   const uint64_t db0 = sw128_desc(st0, 16, 1024);
 
+  float acc[NA];
   for (int t = 0; t < ntiles; ++t) {
     for (int c = 0; c < nch; ++c) {
       const int it = t * nch + c, s = it % stages;
       mbar_wait(full + 8 * s, (it / stages) & 1);
-      if (QS && t == 0) add_query_chunk(st_ptr + s * sb + STAGE_BYTES);
+      if (QS && t == 0) add_query_chunk(st_ptr + s * sb + TCB);
       wgmma_fence();
       const uint64_t da = da0 + (QS ? s * (sb / 16) : c * (QCB / 16));
       const uint64_t db = db0 + s * (sb / 16);
 #pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk)
-        wgmma_m64n64k16(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        if constexpr (TBN == 128)
+          wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+        else
+          wgmma_m64n64k16(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(acc);
@@ -419,47 +492,67 @@ knnk_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
     if (QS && t == 0) finish_query_norms();
 
-    const int slot = t % NTS;
-    mbar_wait(ntfull + 8 * slot, (t / NTS) & 1);
-    float2 ntv[BN / 8];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-      ntv[j] = *reinterpret_cast<const float2*>(&nt_ring[slot * BN + 8 * j +
-                                                         2 * q4]);
-    mbar_arrive(ntempty + 8 * slot);
-
     // n8 slice j holds columns 8 j + 2 q4 + {0, 1} of rows r0 (acc
     // 4 j + e) and r1 (4 j + 2 + e). Fast path: the distances, in place,
     // and each row's minimum over the tile.
+    // The norms come to registers first and the slot is released (H);
+    // with 128-row tiles (pair selection) they are read slice by slice,
+    // which keeps the registers of the 64 accumulators.
+    const int slot = t % NTS;
+    mbar_wait(ntfull + 8 * slot, (t / NTS) & 1);
+    constexpr int NV = PAIR ? 1 : TBN / 8;
+    float2 ntv[NV];
+    if constexpr (!PAIR) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        ntv[j] = *reinterpret_cast<const float2*>(
+            &nt_ring[slot * TBN + 8 * j + 2 * q4]);
+      mbar_arrive(ntempty + 8 * slot);
+    }
     float mn0 = INFINITY, mn1 = INFINITY;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int j = 0; j < TBN / 8; ++j) {
+      if constexpr (PAIR)
+        ntv[0] = *reinterpret_cast<const float2*>(
+            &nt_ring[slot * TBN + 8 * j + 2 * q4]);
+      const float2 nv = ntv[PAIR ? 0 : j];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float nt = e ? ntv[j].y : ntv[j].x;
-        acc[4 * j + e] =
-            __fmaf_rn(-2.f, acc[4 * j + e], __fadd_rn(nq0, nt));
+        const float nt = e ? nv.y : nv.x;
+        acc[4 * j + e] = __fmaf_rn(-2.f, acc[4 * j + e], __fadd_rn(nq0, nt));
         acc[4 * j + 2 + e] =
             __fmaf_rn(-2.f, acc[4 * j + 2 + e], __fadd_rn(nq1, nt));
         mn0 = fminf(mn0, acc[4 * j + e]);
         mn1 = fminf(mn1, acc[4 * j + 2 + e]);
       }
     }
+    if constexpr (PAIR) mbar_arrive(ntempty + 8 * slot);
     // slow path, for the whole warp when any of its rows has a candidate
-    // below its threshold: make room for a tile (at most 8 pairs a row),
-    // then queue every column pair with a candidate below the (possibly
-    // refreshed) threshold, the other candidate of the pair as +inf
+    // below its threshold. Pair selection: fold the tile's columns of
+    // each such row into the two-entry lists and refresh the thresholds.
+    // Otherwise: make room for a tile (at most 8 pairs a row), then queue
+    // every column pair with a candidate below the (possibly refreshed)
+    // threshold, the other candidate of the pair as +inf
     if (__any_sync(0xffffffffu, mn0 < thr0 || mn1 < thr1)) {
-      if (__any_sync(0xffffffffu, cnt0 > QL - 8 || cnt1 > QL - 8))
-        merge_queues();
-      const int cb = t * BN + 2 * q4;
-      if (__any_sync(0xffffffffu, mn0 < thr0))
-        queue_pairs<CT>(acc, 0, thr0, q0, cnt0, cb);
-      if (__any_sync(0xffffffffu, mn1 < thr1))
-        queue_pairs<CT>(acc, 2, thr1, q1, cnt1, cb);
+      if constexpr (PAIR) {
+        const int cb = t * TBN + 2 * q4;
+        if (__any_sync(0xffffffffu, mn0 < thr0))
+          fold_pairs(acc, 0, ld0, li0, cb);
+        if (__any_sync(0xffffffffu, mn1 < thr1))
+          fold_pairs(acc, 2, ld1, li1, cb);
+        refresh();
+      } else {
+        if (__any_sync(0xffffffffu, cnt0 > QL - 8 || cnt1 > QL - 8))
+          merge_queues();
+        const int cb = t * TBN + 2 * q4;
+        if (__any_sync(0xffffffffu, mn0 < thr0))
+          queue_pairs<CT>(acc, 0, thr0, q0, cnt0, cb);
+        if (__any_sync(0xffffffffu, mn1 < thr1))
+          queue_pairs<CT>(acc, 2, thr1, q1, cnt1, cb);
+      }
     }
   }
-  if (__any_sync(0xffffffffu, cnt0 > 0 || cnt1 > 0)) merge_queues();
+  if (!PAIR && __any_sync(0xffffffffu, cnt0 > 0 || cnt1 > 0)) merge_queues();
 
   unpin<KMAX>(ld0, li0, k);
   unpin<KMAX>(ld1, li1, k);
@@ -486,7 +579,7 @@ struct Config {
   bool qstream = false;
 };
 
-Config pick_config(int nch, int ncw_hi) {
+Config pick_config(int nch, int ncw_hi, bool pair) {
   Config cfg;
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -496,7 +589,7 @@ Config pick_config(int nch, int ncw_hi) {
   const int tries[3][2] = {{ncw_hi, 0}, {1, 0}, {1, 1}};
   for (const auto& tr : tries)
     for (int s = MAX_STAGES; s >= 2; --s) {
-      const size_t bytes = smem_bytes(tr[0], nch, s, tr[1] != 0);
+      const size_t bytes = smem_bytes(tr[0], nch, s, tr[1] != 0, pair);
       if (bytes <= static_cast<size_t>(optin)) {
         cfg.ncw = tr[0];
         cfg.qstream = tr[1] != 0;
@@ -516,7 +609,8 @@ int launch(const void* q, const void* t, float* od, int* oi, int batch,
   const uint64_t row = static_cast<uint64_t>(d) * 2;
   if (!tmap_bf16_2d(&tq, q, d, static_cast<uint64_t>(batch) * n, row, KC,
                     NCW * WGQ) ||
-      !tmap_bf16_2d(&tt, t, d, static_cast<uint64_t>(batch) * m, row, KC, BN))
+      !tmap_bf16_2d(&tt, t, d, static_cast<uint64_t>(batch) * m, row, KC,
+                    tile_rows(KMAX == 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e =
       cudaFuncSetAttribute(knnk_wgmma<KMAX, NCW, QS>,
@@ -557,7 +651,13 @@ extern "C" int knn_topk_launch(const void* q, const void* t, void* od,
       reinterpret_cast<uintptr_t>(q) % 16 ||
       reinterpret_cast<uintptr_t>(t) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Config cfg = pick_config((d + KC - 1) / KC, k <= 12 ? 3 : 2);
+  int ncw_hi = k <= 12 ? 3 : 2, dev = 0, sms = 0;
+  if (k <= 2 && cudaGetDevice(&dev) == cudaSuccess &&
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+          cudaSuccess &&
+      static_cast<long long>((n + 3 * WGQ - 1) / (3 * WGQ)) * batch < sms)
+    ncw_hi = 1;  // pair selection on a small N: 64 queries a CTA
+  const Config cfg = pick_config((d + KC - 1) / KC, ncw_hi, k <= 2);
   if (cfg.ncw == 0) return static_cast<int>(cudaErrorInvalidValue);
   float* odf = static_cast<float*>(od);
   int* oii = static_cast<int*>(oi);
@@ -572,7 +672,8 @@ extern "C" int knn_topk_launch(const void* q, const void* t, void* od,
   return launch_k<16>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
 }
 
-// Dynamic shared memory a CTA requests at width d (k <= 12).
-extern "C" int knn_topk_smem_bytes(int d) {
-  return pick_config((d + KC - 1) / KC, 3).smem;
+// Dynamic shared memory a CTA requests at width d: k in 3..12 (``which``
+// 0) or the pair selection, k <= 2 (``which`` 1).
+extern "C" int knn_topk_smem_bytes(int d, int which) {
+  return pick_config((d + KC - 1) / KC, 3, which == 1).smem;
 }

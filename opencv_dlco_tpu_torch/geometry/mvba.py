@@ -6,12 +6,18 @@ poses, N landmarks, K observations; per Levenberg-Marquardt step:
 
   1. per-observation residuals and Jacobian blocks J_c (2, 6) wrt the
      observing camera and J_p (2, 3) wrt the landmark (forward mode);
-  2. scatter-assembled block Hessians Hcc (M, 6, 6), Hpp (N, 3, 3) and the
-     per-observation coupling blocks Hcp (K, 6, 3);
+  2. block Hessians Hcc (M, 6, 6), Hpp (N, 3, 3) summed per camera and
+     per landmark, and the per-observation coupling blocks Hcp (K, 6, 3);
   3. landmark elimination with the observations grouped per landmark (the
      static-width ``table``): S = Hcc - sum_p W_p Hpp_p^-1 W_p^T, as
-     (L, L) camera-pair outer products scattered into (M, M, 6, 6);
+     (L, L) camera-pair outer products summed into (M, M, 6, 6);
   4. a dense (6M, 6M) solve and landmark back-substitution.
+
+Every sum over observations is a deterministic segment sum
+(``segment.py``; the reference's ``.at[].add``), not ``index_add``, whose
+float atomics on the card made the refined trajectory differ from run to
+run. The segment tables depend only on the index arrays and are built
+once per solve (``_Segments``).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from .jacobian import jac_fwd
 from .se3 import _mv, se3_exp
+from .segment import segment_sum, segment_table
 
 
 def _obs_residual(xi, x3d, r0, t0, uv):
@@ -76,7 +83,29 @@ def _linearize(r, t, points, cam_idx, uv, w, pt_idx):
     return res, j[..., :6], j[..., 6:], cost
 
 
-def _schur_terms(res, jc, jp, w, cam_idx, pt_idx, table, m, lam):
+class _Segments(NamedTuple):
+    """Segment tables of one solve: observations by camera (cam) and by
+    landmark (pt), the valid (L, L) camera pairs of each landmark by
+    linear block index c_i * M + c_j (pair), and the valid table slots by
+    camera (slot)."""
+    cam: torch.Tensor
+    pt: torch.Tensor
+    pair: torch.Tensor
+    slot: torch.Tensor
+
+    @classmethod
+    def build(cls, cam_idx, pt_idx, table, m, n):
+        valid = table >= 0
+        cams = cam_idx[torch.clamp(table, min=0)]
+        vv = valid[:, :, None] & valid[:, None, :]
+        lin = torch.where(vv, cams[:, :, None] * m + cams[:, None, :], -1)
+        return cls(cam=segment_table(cam_idx, m),
+                   pt=segment_table(pt_idx, n),
+                   pair=segment_table(lin, m * m),
+                   slot=segment_table(torch.where(valid, cams, -1), m))
+
+
+def _schur_terms(res, jc, jp, w, table, seg, m, lam):
     """The reduced camera system: (S (M, M, 6, 6), rhs (M, 6), hpp_inv
     (N, 3, 3), bp (N, 3), hcp_blocks (K, 6, 3)); landmark blocks damped
     here, camera damping and the gauge prior left to the caller."""
@@ -88,15 +117,10 @@ def _schur_terms(res, jc, jp, w, cam_idx, pt_idx, table, m, lam):
     bc_obs = -torch.einsum("k,kri,kr->ki", w, jc, res)
     bp_obs = -torch.einsum("k,kri,kr->ki", w, jp, res)
 
-    n = table.shape[0]
-    hpp = torch.zeros((n, 3, 3), dtype=dt, device=dev).index_add(
-        0, pt_idx, hpp_blocks)
-    bp = torch.zeros((n, 3), dtype=dt, device=dev).index_add(0, pt_idx,
-                                                             bp_obs)
-    hcc = torch.zeros((m, 6, 6), dtype=dt, device=dev).index_add(
-        0, cam_idx, hcc_blocks)
-    bc = torch.zeros((m, 6), dtype=dt, device=dev).index_add(0, cam_idx,
-                                                             bc_obs)
+    hpp = segment_sum(hpp_blocks, seg.pt)
+    bp = segment_sum(bp_obs, seg.pt)
+    hcc = segment_sum(hcc_blocks, seg.cam)
+    bc = segment_sum(bc_obs, seg.cam)
 
     # damp landmark blocks then invert (3x3, batched)
     eye3 = torch.eye(3, dtype=dt, device=dev)
@@ -108,32 +132,25 @@ def _schur_terms(res, jc, jp, w, cam_idx, pt_idx, table, m, lam):
     valid = table >= 0                                     # (N, L)
     tbl = torch.clamp(table, min=0)
     w_blk = hcp_blocks[tbl] * valid[..., None, None]       # (N, L, 6, 3)
-    cams = cam_idx[tbl]                                    # (N, L)
     tmp = torch.einsum("nlij,njk->nlik", w_blk, hpp_inv)
     pair = torch.einsum("nlik,nmjk->nlmij", tmp, w_blk)    # (N, L, L, 6, 6)
     rhs_corr = torch.einsum("nlik,nk->nli", tmp, bp)       # (N, L, 6)
 
-    vv = valid[:, :, None] & valid[:, None, :]
-    lin = (cams[:, :, None] * m + cams[:, None, :]).reshape(-1)
-    s = torch.zeros((m * m, 6, 6), dtype=dt, device=dev).index_add(
-        0, lin, torch.where(vv[..., None, None], pair, 0.0).reshape(-1, 6, 6))
-    diag = torch.arange(m, device=dev) * (m + 1)
-    s = torch.zeros((m * m, 6, 6), dtype=dt, device=dev).index_add(
-        0, diag, hcc) - s
-    rhs = bc.index_add(0, cams.reshape(-1),
-                       -torch.where(valid[..., None], rhs_corr,
-                                    0.0).reshape(-1, 6))
-    return s.reshape(m, m, 6, 6), rhs, hpp_inv, bp, hcp_blocks
+    s = -segment_sum(pair.reshape(-1, 6, 6), seg.pair).reshape(m, m, 6, 6)
+    ar = torch.arange(m, device=dev)
+    s[ar, ar] = hcc + s[ar, ar]
+    rhs = bc - segment_sum(rhs_corr.reshape(-1, 6), seg.slot)
+    return s, rhs, hpp_inv, bp, hcp_blocks
 
 
-def _solve_and_backsub(s, rhs, hpp_inv, bp, hcp_blocks, pt_idx, cam_idx, m):
+def _solve_and_backsub(s, rhs, hpp_inv, bp, hcp_blocks, seg, cam_idx, m):
     sd = s.permute(0, 2, 1, 3).reshape(6 * m, 6 * m)
     eye = torch.eye(6 * m, dtype=s.dtype, device=s.device)
     dc = torch.linalg.solve(sd + 1e-9 * eye,
                             rhs.reshape(-1, 1))[:, 0].reshape(m, 6)
     # back-substitute: dp_n = Hpp_n^-1 (bp_n - sum_obs Hcp_k^T dc_cam(k))
     corr = torch.einsum("kij,ki->kj", hcp_blocks, dc[cam_idx])  # (K, 3)
-    bp_corr = bp - torch.zeros_like(bp).index_add(0, pt_idx, corr)
+    bp_corr = bp - segment_sum(corr, seg.pt)
     dp = torch.einsum("nij,nj->ni", hpp_inv, bp_corr)
     return dc, dp
 
@@ -154,6 +171,7 @@ def multi_view_ba(r0, t0, points0, cam_idx, pt_idx, uv, table,
         weights = torch.ones(uv.shape[0], dtype=uv.dtype, device=dev)
     eye6 = torch.eye(6, dtype=dt, device=dev)
     ar = torch.arange(m, device=dev)
+    seg = _Segments.build(cam_idx, pt_idx, table, m, points0.shape[0])
 
     def cost_of(r, t, points):
         res = _residuals(r, t, points, cam_idx, pt_idx, uv)
@@ -166,13 +184,13 @@ def multi_view_ba(r0, t0, points0, cam_idx, pt_idx, uv, table,
         res, jc, jp, cost = _linearize(r, t, points, cam_idx, uv, weights,
                                        pt_idx)
         s, rhs, hpp_inv, bp, hcp_b = _schur_terms(
-            res, jc, jp, weights, cam_idx, pt_idx, table, m, lam)
+            res, jc, jp, weights, table, seg, m, lam)
         s = s.clone()
         s[0, 0] = s[0, 0] + gauge_weight * eye6
         tr = torch.diagonal(s[ar, ar], dim1=-2, dim2=-1).sum(-1)
         s[ar, ar] = s[ar, ar] + lam * eye6 * torch.clamp(
             tr / 6.0, min=1e-8)[:, None, None]
-        dc, dp = _solve_and_backsub(s, rhs, hpp_inv, bp, hcp_b, pt_idx,
+        dc, dp = _solve_and_backsub(s, rhs, hpp_inv, bp, hcp_b, seg,
                                     cam_idx, m)
         dr, dt2 = se3_exp(dc)
         r_new = torch.matmul(dr, r)

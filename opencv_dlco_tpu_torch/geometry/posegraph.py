@@ -8,7 +8,8 @@ Levenberg-Marquardt on the product manifold of M poses: each edge
     r_e = log( Z_ij^-1 o (T_i^-1 o T_j) )
 
 with Jacobian blocks by forward mode over left-multiplicative increments on
-T_i and T_j. Edge blocks scatter-add into a dense (6M, 6M) normal system;
+T_i and T_j. Edge blocks are summed into a dense (6M, 6M) normal system by
+deterministic segment sums (``segment.py``; the reference's ``.at[].add``);
 node 0 is gauge-fixed by a strong prior. Optional edge-level robust kernels
 (Huber, DCS) with a graduated non-convexity anneal, as in the reference.
 """
@@ -21,6 +22,7 @@ import torch
 
 from .jacobian import jac_fwd
 from .se3 import (_mv, se3_compose, se3_exp, se3_inverse, se3_log, so3_log)
+from .segment import segment_sum, segment_table
 
 
 def _huber(chi2, delta2):
@@ -85,10 +87,11 @@ class PoseGraphResult(NamedTuple):
     cost_history: torch.Tensor
 
 
-def _assemble(res, ja, jb, weights, edges_i, edges_j, m, dof,
-              gauge_weight):
+def _assemble(res, ja, jb, weights, seg_h, seg_b, m, dof, gauge_weight):
     """Dense normal system (H (dof m, dof m), b (dof m,)) of the edge
-    blocks, with the gauge prior on node 0."""
+    blocks, with the gauge prior on node 0. The blocks are summed by the
+    segment tables of ``_edge_segments`` (a fixed order, so the same
+    inputs give the same system in every run)."""
     dt, dev = res.dtype, res.device
     w = weights[:, None, None]
     haa = w * torch.einsum("eri,erj->eij", ja, ja)
@@ -96,17 +99,23 @@ def _assemble(res, ja, jb, weights, edges_i, edges_j, m, dof,
     hab = w * torch.einsum("eri,erj->eij", ja, jb)
     ba = -torch.einsum("e,eri,er->ei", weights, ja, res)
     bb = -torch.einsum("e,eri,er->ei", weights, jb, res)
-    lin = torch.cat([edges_i * m + edges_i, edges_j * m + edges_j,
-                     edges_i * m + edges_j, edges_j * m + edges_i])
     blocks = torch.cat([haa, hbb, hab, hab.transpose(-1, -2)])
-    h = torch.zeros((m * m, dof, dof), dtype=dt, device=dev).index_add(
-        0, lin, blocks)
+    h = segment_sum(blocks, seg_h)
     h[0] = h[0] + gauge_weight * torch.eye(dof, dtype=dt, device=dev)
-    b = torch.zeros((m, dof), dtype=dt, device=dev).index_add(
-        0, torch.cat([edges_i, edges_j]), torch.cat([ba, bb]))
+    b = segment_sum(torch.cat([ba, bb]), seg_b)
     hd = h.reshape(m, m, dof, dof).permute(0, 2, 1, 3).reshape(dof * m,
                                                               dof * m)
     return hd, b.reshape(-1)
+
+
+def _edge_segments(edges_i, edges_j, m):
+    """Segment tables of ``_assemble``: the four blocks of each edge by
+    linear block index (ii, jj, ij, ji), and the two gradient blocks by
+    node."""
+    lin = torch.cat([edges_i * m + edges_i, edges_j * m + edges_j,
+                     edges_i * m + edges_j, edges_j * m + edges_i])
+    return (segment_table(lin, m * m),
+            segment_table(torch.cat([edges_i, edges_j]), m))
 
 
 def _lm(state0, residuals, apply_dx, weights, edges_i, edges_j, m, dof,
@@ -129,6 +138,7 @@ def _lm(state0, residuals, apply_dx, weights, edges_i, edges_j, m, dof,
         return rho.sum(), weights * rw
 
     eye = torch.eye(dof * m, dtype=dt, device=dev)
+    seg_h, seg_b = _edge_segments(edges_i, edges_j, m)
     state = state0
     lam = torch.tensor(init_lambda, dtype=dt, device=dev)
     costs = [cost_and_weights(residuals(state0, None), delta2)[0]]
@@ -136,8 +146,8 @@ def _lm(state0, residuals, apply_dx, weights, edges_i, edges_j, m, dof,
         d2_k = delta2 * _gnc_scale(k, gnc_iters) if rho_fn else None
         res, j = residuals(state, True)
         cost, w_eff = cost_and_weights(res, d2_k)
-        hd, b = _assemble(res, j[..., :dof], j[..., dof:], w_eff, edges_i,
-                          edges_j, m, dof, gauge_weight)
+        hd, b = _assemble(res, j[..., :dof], j[..., dof:], w_eff, seg_h,
+                          seg_b, m, dof, gauge_weight)
         hd = hd + lam * torch.diag(torch.clamp(torch.diagonal(hd), min=1e-8))
         dx = torch.linalg.solve(hd + 1e-9 * eye, b[:, None])[:, 0]
         new = apply_dx(state, dx.reshape(m, dof))

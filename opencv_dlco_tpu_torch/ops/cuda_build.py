@@ -31,8 +31,8 @@ SOURCES = {
     "rda_wide": "rda_wide.cu",        # kernel B
     "rda_narrow": "rda_narrow.cu",    # kernels C and D
     "hinge": "hinge.cu",              # kernel E
-    "knn": "knn.cu",                  # kernel F (and H in f32)
-    "knn_topk": "knn_topk.cu",        # kernel H (bf16, wgmma)
+    "knn": "knn.cu",                  # kernels F and H in f32
+    "knn_topk": "knn_topk.cu",        # kernels F and H in bf16 (wgmma)
     "knn_batched": "knn_batched.cu",  # kernel G
 }
 
@@ -52,7 +52,7 @@ SIGNATURES = {
                    [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _P]),
     "hinge": ("hinge_launch", [_P, _P, _P, _I, _I, _P]),
-    "knn": ("knn_launch", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "knn": ("knn_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _P]),
     "knn_topk": ("knn_topk_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _P]),

@@ -13,7 +13,9 @@ distribution inside from a PRNG key, ``fused_rda.py:191-199``):
   kept in a scratch, the gate summing the slices in order, then df and w
   (scratch shapes: ``wide_scratch``).
 - ``fused_block_train``: kernel C, S <= 8 with f32 w, df and g,
-  ``csrc/rda_narrow.cu``.
+  ``csrc/rda_narrow.cu``: one persistent launch for all steps, each
+  sampled row read once a step, and the per-CTA partial subgradients
+  summed in a fixed order (the kernel's header states it).
 - ``fused_block_grad``: kernel D, one block's subgradient, run as the
   gradient mode of kernel C.
 
@@ -231,23 +233,29 @@ def _narrow_launch(what, pos, neg, w, df, g_out, mu, gamma, offs, t, batch,
     s_dim, f_dim = w.shape
     if s_dim > 8:
         raise ValueError(f"{what}: kernel C takes S <= 8, got {s_dim}")
+    lib = cuda_build.load("rda_narrow")
+    if f_dim % 8 or f_dim > lib.rda_narrow_max_f(s_dim) or pos.data_ptr() \
+            % 16 or neg.data_ptr() % 16:
+        raise ValueError(f"{what}: kernel C needs F % 8 == 0, F <= "
+                         f"{lib.rda_narrow_max_f(s_dim)} at S = {s_dim} and "
+                         f"16-byte aligned pos/neg (F={f_dim})")
     dev = pos.device
     offs_d = offs.contiguous().to(dev)
-    viol = torch.empty((s_dim, batch), dtype=torch.float32, device=dev)
-    partial = torch.empty((batch // tile_b, s_dim, f_dim),
-                          dtype=torch.float32, device=dev)
-    lib = cuda_build.load("rda_narrow")
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
     with torch.cuda.device(dev):
+        partial = torch.empty((lib.rda_narrow_ctas(batch), s_dim, f_dim),
+                              dtype=torch.float32, device=dev)
+        # the grid barrier's counter and generation word (zeroed by the run)
+        barrier = torch.empty(2, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.rda_narrow_run(
             _DTYPES[pos.dtype], pos.data_ptr(), neg.data_ptr(), w.data_ptr(),
             df.data_ptr(), ptr(g_out), ptr(mu), ptr(gamma), offs_d.data_ptr(),
-            viol.data_ptr(), partial.data_ptr(), offs.shape[0], int(t),
-            batch, tile_b, f_dim, s_dim, stream)
+            partial.data_ptr(), barrier.data_ptr(), offs.shape[0],
+            int(t), batch, tile_b, f_dim, s_dim, stream)
     cuda_build.check(rc, what)
 
 
@@ -264,11 +272,12 @@ def fused_block_train(pos, neg, w, df_avg, t, mu, gamma, offs, *,
     _cuda_args("fused_block_train", pos, neg, w, df_avg, mu, gamma)
     w_out = w.to(torch.float32).contiguous().clone()
     df = df_avg.to(torch.float32).contiguous().clone()
-    _narrow_launch("fused_block_train", pos, neg, w_out, df, None,
-                   mu.to(torch.float32).contiguous(),
-                   gamma.to(torch.float32).contiguous(), offs, t, batch,
-                   tile_b)
-    fused_block_train.launches += 1
+    if offs.shape[0]:
+        _narrow_launch("fused_block_train", pos, neg, w_out, df, None,
+                       mu.to(torch.float32).contiguous(),
+                       gamma.to(torch.float32).contiguous(), offs, t, batch,
+                       tile_b)
+        fused_block_train.launches += 1
     return w_out, df, t + batch * offs.shape[0]
 
 

@@ -4,7 +4,7 @@ in one pass.
 Port of ``opencv_dlco_tpu/ops/knn_pallas.py``:
 
 - ``knn2_fused``: kernel F, the 2 nearest train rows of every query
-  (``csrc/knn.cu``);
+  (bf16: ``csrc/knn_topk.cu``'s pair selection; f32: ``csrc/knn.cu``);
 - ``knn2_fused_batched``: kernel G, the 2-NN over a leading batch axis (the
   SLAM pose chunk's C matching problems, one launch;
   ``csrc/knn_batched.cu``);
@@ -18,8 +18,9 @@ lower train index, (inf, -1) where a query has fewer than k neighbours.
 ``bf16=True`` rounds q and t to bf16 before the norms and the products
 (the TPU kernels' fast mode); ``bf16=False`` is true f32, TF32 off.
 The launchers take the leading batch axis, as the TPU's ``_fused_call``
-does. G and H (bf16) are one kernel launch a call, the norms computed
-inside; ``csrc/knn.cu`` runs two norm passes before its main kernel.
+does. F and H (bf16) and G are one kernel launch a call, the norms
+computed inside (f32 inputs to the bf16 mode are cast first);
+``csrc/knn.cu`` (f32) runs two norm passes before its main kernel.
 
 On a CPU tensor each wrapper runs ``knn_plain``, the same function in
 plain PyTorch; on a CUDA tensor it launches the kernel or raises.
@@ -165,24 +166,22 @@ def _empty_result(b: int, n: int, k: int, dev) -> Tuple[torch.Tensor,
 
 def _fused_call(query: torch.Tensor, train: torch.Tensor, k: int, *,
                 bf16: bool, wrapper):
-    """Launcher of ``csrc/knn.cu`` (kernel F; kernel H in f32): (B, N, D) x
-    (B, M, D) -> ((B, N, k),
-    (B, N, k)). Counts a launch on ``wrapper.launches``."""
+    """Kernels F and H: (B, N, D) x (B, M, D) -> ((B, N, k), (B, N, k)).
+    CPU tensors: ``knn_plain``; bf16 on the card: ``csrc/knn_topk.cu``;
+    f32 on the card: ``csrc/knn.cu``. Counts a launch on
+    ``wrapper.launches``."""
     what = wrapper.__name__
     _check_args(query, train, k, what)
     if query.device.type == "cpu":
         return knn_plain(query, train, k, bf16=bf16)
+    if bf16:
+        return _topk_call(query, train, k, wrapper)
     dev = query.device
     b, n, d = query.shape
-    if bf16:
-        pad = (-d) % 16
-        q, t = _bf16_rows(query, pad), _bf16_rows(train, pad)
-    else:
-        pad = 0
-        q = query.to(torch.float32).contiguous()
-        t = train.to(torch.float32).contiguous()
-        q = q.clone() if q.data_ptr() % 16 else q
-        t = t.clone() if t.data_ptr() % 16 else t
+    q = query.to(torch.float32).contiguous()
+    t = train.to(torch.float32).contiguous()
+    q = q.clone() if q.data_ptr() % 16 else q
+    t = t.clone() if t.data_ptr() % 16 else t
     m = t.shape[1]
     od = torch.empty((b, n, k), dtype=torch.float32, device=dev)
     oi = torch.empty((b, n, k), dtype=torch.int32, device=dev)
@@ -190,22 +189,22 @@ def _fused_call(query: torch.Tensor, train: torch.Tensor, k: int, *,
         return od, oi
     qn = torch.empty((b, n), dtype=torch.float32, device=dev)
     tn = torch.empty((b, m), dtype=torch.float32, device=dev)
-    rc = _run(dev, _entry("knn"), int(bf16), q.data_ptr(), t.data_ptr(),
-              qn.data_ptr(), tn.data_ptr(), od.data_ptr(), oi.data_ptr(), b,
-              n, m, d + pad, k, q.stride(0), q.stride(1), t.stride(0),
-              t.stride(1))
+    rc = _run(dev, _entry("knn"), q.data_ptr(), t.data_ptr(), qn.data_ptr(),
+              tn.data_ptr(), od.data_ptr(), oi.data_ptr(), b, n, m, d, k,
+              q.stride(0), q.stride(1), t.stride(0), t.stride(1))
     cuda_build.check(rc, what)
     wrapper.launches += 1
     return od, oi
 
 
-def _topk_call(query: torch.Tensor, train: torch.Tensor, k: int):
-    """Launcher of ``csrc/knn_topk.cu`` (kernel H on Hopper, bf16): one
-    launch, norms inside. Counts a launch on ``knnk_fused.launches``."""
+def _topk_call(query: torch.Tensor, train: torch.Tensor, k: int, wrapper):
+    """Launcher of ``csrc/knn_topk.cu`` (kernels F and H on Hopper, bf16;
+    k <= 2 takes the pair selection): one launch, norms inside. Counts a
+    launch on ``wrapper.launches``."""
     dev = query.device
     b, n, d = query.shape
     m = train.shape[1]
-    pad = (-d) % 16
+    pad = (-d) % 8      # rows of whole 16-byte units (the tensor maps' stride)
     q, t = _bf16_rows(query, pad), _bf16_rows(train, pad)
     if b == 0 or n == 0 or m == 0:
         return _empty_result(b, n, k, dev)
@@ -213,8 +212,8 @@ def _topk_call(query: torch.Tensor, train: torch.Tensor, k: int):
     oi = torch.empty((b, n, k), dtype=torch.int32, device=dev)
     rc = _run(dev, _entry("knn_topk"), q.data_ptr(), t.data_ptr(),
               od.data_ptr(), oi.data_ptr(), b, n, m, d + pad, k)
-    cuda_build.check(rc, "knnk_fused")
-    knnk_fused.launches += 1
+    cuda_build.check(rc, wrapper.__name__)
+    wrapper.launches += 1
     return od, oi
 
 
@@ -265,12 +264,8 @@ def knnk_fused(query: torch.Tensor, train: torch.Tensor, k: int, *,
     """Top-k (1 <= k <= 16) per query (kernel H): (dists (N, k) ascending,
     idx (N, k) int32). bf16 on a CUDA tensor runs ``csrc/knn_topk.cu`` at
     every width; f32 runs ``csrc/knn.cu``."""
-    q, t = query[None], train[None]
-    if bf16 and query.device.type == "cuda":
-        _check_args(q, t, k, "knnk_fused")
-        od, oi = _topk_call(q, t, k)
-        return od[0], oi[0]
-    od, oi = _fused_call(q, t, k, bf16=bf16, wrapper=knnk_fused)
+    od, oi = _fused_call(query[None], train[None], k, bf16=bf16,
+                         wrapper=knnk_fused)
     return od[0], oi[0]
 
 

@@ -431,3 +431,136 @@ def test_knn_wrappers_raise_on_shapes_the_kernels_cannot_take(dev):
         knn_fused.knn2_fused_batched(q[None], torch.cat([q[None], q[None]]))
     with pytest.raises(ValueError):
         knn_fused.knn2_fused_batched(q[None], q[None].cpu())
+
+
+def _c_splits(dev, dtype, n=4096, f=1024, seed=0):
+    """Splits whose rows differ by a per-row shift, so the hinge's
+    violators are a mix at every step (not all rows, not none)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.rand((n, f), generator=g, device=dev) * 0.02
+    neg = pos + (torch.rand((n, 1), generator=g, device=dev) - 0.5) * 0.2 \
+        + torch.rand((n, f), generator=g, device=dev) * 0.01
+    return pos.to(dtype), neg.to(dtype)
+
+
+def _c_run(dev, dtype, s_dim, n_steps, batch, f=1024, seed=0):
+    pos, neg = _c_splits(dev, dtype, f=f, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    w0 = (1.0 + torch.rand((s_dim, f), generator=g, device=dev)) * 10.0 / f
+    z = torch.zeros_like(w0)
+    mu = torch.linspace(0.005, 0.08, s_dim, device=dev)
+    gamma = torch.linspace(0.02, 0.5, s_dim, device=dev)
+    offs = fr.draw_block_offsets(torch.Generator().manual_seed(seed), n_steps,
+                                 4096, 4096, batch, 128)
+    args = (pos, neg, w0, z, 0, mu, gamma, offs)
+    return args, fr.fused_block_train(*args, batch=batch)
+
+
+@pytest.mark.parametrize("n_steps", [1, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_dim", [1, 2, 8])
+def test_kernel_c_persistent_matches_plain(dev, s_dim, dtype, n_steps):
+    """Kernel C's one persistent launch against its plain version at batch
+    2048 (the main path's; uneven rows over the card's CTAs), F 1024: df at
+    the JAX suite's f32 tolerance, df * t at its bf16 one; the gradient
+    mode (kernel D) on the same splits."""
+    before = fr.fused_block_train.launches
+    args, (w, df, t) = _c_run(dev, dtype, s_dim, n_steps, 2048)
+    assert fr.fused_block_train.launches == before + 1
+    _, df_p, _ = fr.fused_block_train_plain(*args, batch=2048)
+    g = fr.fused_block_grad(args[0], args[1], args[2], 3, 5, batch=2048)
+    g_p = fr.fused_block_grad_plain(args[0], args[1], args[2], 3, 5,
+                                    batch=2048)
+    torch.cuda.synchronize()
+    tol = dict(rtol=3e-5, atol=3e-4) if dtype == torch.float32 else BF16
+    if dtype == torch.float32:
+        np.testing.assert_allclose(df.cpu().numpy(), df_p.cpu().numpy(),
+                                   **tol)
+    else:
+        np.testing.assert_allclose((df * t).cpu().numpy(),
+                                   (df_p * t).cpu().numpy(), **tol)
+    np.testing.assert_allclose(g.cpu().numpy(), g_p.cpu().numpy(), **tol)
+
+
+@pytest.mark.parametrize("batch,f", [(384, 256), (128, 1000), (2048, 5120)])
+def test_kernel_c_batches_off_the_row_partition(dev, batch, f):
+    """Batches that split unevenly over the CTAs (384) or leave CTAs out
+    (128 rows: one a CTA), F off a multiple of 1024, and the single-run
+    width, S 3, f32, 5 steps."""
+    args, (_, df, _) = _c_run(dev, torch.float32, 3, 5, batch, f=f, seed=2)
+    _, df_p, _ = fr.fused_block_train_plain(*args, batch=batch)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(df.cpu().numpy(), df_p.cpu().numpy(),
+                               rtol=3e-5, atol=3e-4)
+
+
+def test_kernel_c_rejects_widths_it_cannot_take(dev):
+    pos, neg = _c_splits(dev, torch.float32, n=512, f=100)
+    w = torch.zeros((1, 100), device=dev)
+    with pytest.raises(ValueError):     # F % 8 != 0
+        fr.fused_block_train(pos, neg, w, w, 0, torch.ones(1, device=dev),
+                             torch.ones(1, device=dev), [[0, 0]], batch=128)
+    pos, neg = _c_splits(dev, torch.float32, n=512, f=5128)
+    w = torch.zeros((8, 5128), device=dev)
+    with pytest.raises(ValueError):     # F past 5120 at S 8
+        fr.fused_block_train(pos, neg, w, w, 0, torch.ones(8, device=dev),
+                             torch.ones(8, device=dev), [[0, 0]], batch=128)
+
+
+def _f_tied(dev, n, m, d, seed):
+    """Clustered queries against train rows of which a block repeats
+    earlier rows (exact ties across tiles) where M allows."""
+    q, t = _clustered(dev, n, max(m, n), d, seed)
+    t = t[:m].clone()
+    if m > 200:
+        t[m - 100:] = t[:100]
+    return q.contiguous(), t.contiguous()
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("m", [1, 63, 65, 4097])
+@pytest.mark.parametrize("d", [40, 1400])
+def test_kernel_f_pair_selection_with_ties(dev, k, m, d):
+    """Kernel F (knn_topk.cu's pair selection, bf16) through knn_match at
+    k 1 and 2: one launch; M below 2, off the 64-row tile and past a
+    multiple of it; d 40 (not a multiple of 16) and d 1400 (past the
+    resident limit: queries stream); against the bf16 plain version by
+    match identity and with equal distances in ascending index."""
+    from opencv_dlco_tpu_torch.ops.knn import knn_match, ratio_test
+
+    q, t = _f_tied(dev, 1001, m, d, seed=m + d + k)
+    before = knn_fused.knn2_fused.launches
+    dk, ik = knn_match(q, t, k=k, fused=True)
+    assert knn_fused.knn2_fused.launches == before + 1
+    dp, ip = knn_fused.knn_plain(q, t, k, bf16=True)
+    torch.cuda.synchronize()
+    assert dk.shape == ik.shape == (1001, k)
+    same = ik == ip
+    assert same.float().mean(dim=0).min() >= 0.99
+    if k == 2:
+        mk, _ = ratio_test(dk, ik)
+        mp, _ = ratio_test(dp, ip)
+        assert (mk == mp).float().mean() >= 0.99
+        tie = dk[:, 1] == dk[:, 0]
+        assert bool((ik[:, 1] > ik[:, 0])[tie].all())
+        if m == 1:
+            assert bool((ik[:, 1] == -1).all() and torch.isinf(dk[:, 1]).all())
+    qb, tb = q.bfloat16().float(), t.bfloat16().float()
+    mag = (qb * qb).sum(1)[:, None] + (tb * tb).sum(1)[ip.clamp(min=0).long()]
+    err = (dk - dp).abs()[same & (ip >= 0)]
+    assert bool((err <= 1e-3 * dp.abs()[same & (ip >= 0)]
+                 + 1e-5 * mag[same & (ip >= 0)]).all())
+
+
+def test_kernels_c_and_f_rerun_bit_identical(dev):
+    """Kernel C's fixed-order reduction and kernel F's selection give the
+    same bits on a second call with the same inputs."""
+    a = _c_run(dev, torch.float32, 1, 48, 2048, f=5120, seed=4)[1]
+    b = _c_run(dev, torch.float32, 1, 48, 2048, f=5120, seed=4)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    q, t = _f_tied(dev, 8192, 8192, 64, seed=1)
+    a = knn_fused.knn2_fused(q, t)
+    b = knn_fused.knn2_fused(q, t)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

@@ -419,3 +419,43 @@ def test_optimize_pose_graph_sim3_matches_jax(robust):
     _close(ours.cost_history[-1], ref.cost_history[-1], rtol=1e-4)
     _close(ours.cost_history, ref.cost_history, rtol=1e-3)
     assert abs(float(ours.s[0]) - 1.0) < 1e-3        # gauge
+
+
+# -- deterministic segment sums ---------------------------------------------
+
+@pytest.mark.parametrize("case", ["duplicates", "empty_segments", "empty"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_segment_sum_matches_index_add_and_jax(case, dtype):
+    """The solvers' deterministic segment sum against torch's index_add and
+    JAX's .at[].add on the same (K, 3, 2) values: duplicate indices, empty
+    segments, an empty input; 1e-6 of each segment's absolute sum (three
+    summation orders of the same values). The table lists each segment's
+    positions in input order and drops indices outside [0, n)."""
+    from opencv_dlco_tpu_torch.geometry.segment import (segment_sum,
+                                                        segment_table)
+
+    rng = np.random.default_rng(7)
+    n = 9
+    idx = {"duplicates": rng.integers(0, n, 200),
+           "empty_segments": rng.choice([0, 3, 4, 8], 57),
+           "empty": np.zeros(0, np.int64)}[case]
+    vals = rng.normal(size=(idx.size, 3, 2)).astype(dtype)
+    table = segment_table(torch.from_numpy(idx), n)
+    got = segment_sum(torch.from_numpy(vals), table).numpy()
+    assert got.shape == (n, 3, 2) and got.dtype == dtype
+    ref_t = torch.zeros((n, 3, 2), dtype=torch.from_numpy(vals).dtype) \
+        .index_add(0, torch.from_numpy(idx), torch.from_numpy(vals)).numpy()
+    with jax.enable_x64(dtype == np.float64):
+        ref_j = np.asarray(jnp.zeros((n, 3, 2), dtype).at[idx].add(vals))
+    mag = np.zeros((n, 3, 2))
+    np.add.at(mag, idx, np.abs(vals.astype(np.float64)))
+    for ref in (ref_t, ref_j):
+        assert np.all(np.abs(got - ref) <= 1e-6 * mag)
+    for s in range(n):
+        row = table[s].numpy()
+        listed = row[row < idx.size]
+        np.testing.assert_array_equal(listed, np.nonzero(idx == s)[0])
+        assert np.all(row[listed.size:] == idx.size)
+    drop = segment_table(torch.tensor([2, -1, 2, n, 0]), n)
+    assert drop[2].tolist()[:2] == [0, 2] and drop[0].tolist()[0] == 4
+    assert int((drop < 5).sum()) == 3

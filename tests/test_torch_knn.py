@@ -298,6 +298,74 @@ def emulate_h_selection(raw, k):
     return d_out, i_out, adm, slow_tiles
 
 
+def emulate_f_selection(raw, k):
+    """Kernel F's pair selection (csrc/knn_topk.cu at k <= 2) over raw
+    (N, M) distances: returns (dists (N, k), idx (N, k), candidates below
+    the threshold per row, slow tiles per warp). The tiling and lane ownership are H's; each lane keeps a
+    two-slot list per row (the first 2 - k pinned at -1) and no queues. A
+    warp takes the slow path on a tile when any of its rows has a candidate
+    below its threshold: for each row half (rows g, then g + 8) where some
+    lane has one, every lane folds its 16 columns of that row into its
+    list in column order (clamped at 0, strict comparisons), then the
+    thresholds refresh to the minimum of the own tail, the quad's minimum
+    tail and the quad's maximum ceil(k/4)-th entry."""
+    n, m = raw.shape
+    w = -(-n // 16)
+    n_tiles = -(-m // H_TILE)
+    pad = torch.full((w * 16, n_tiles * H_TILE), float("inf"))
+    pad[:n, :m] = raw
+    rows = pad.view(w, 2, 8, -1).permute(0, 2, 1, 3)[:, :, None]
+    rows = rows.expand(-1, -1, 4, -1, -1)
+    shape = (w, 8, 4, 2)
+    inf, imax = float("inf"), 2 ** 31 - 1
+    d0 = torch.full(shape, -1.0 if k == 1 else inf)
+    d1 = torch.full(shape, inf)
+    i0 = torch.full(shape, imax, dtype=torch.int64)
+    i1 = i0.clone()
+    thr = torch.full(shape, inf)
+    admitted = torch.zeros(shape)
+    slow_tiles = torch.zeros(w)
+    quarter = 2 - k + (k + 3) // 4 - 1
+    q4 = torch.arange(4)[None, None, :, None]
+    for t in range(n_tiles):
+        cols = [t * H_TILE + 8 * j + 2 * q4 + e
+                for j in range(H_TILE // 8) for e in range(2)]
+        ds = [torch.gather(rows, 4, c.expand(shape)[..., None])[..., 0]
+              for c in cols]
+        below = torch.stack([d < thr for d in ds]).any(0)    # (w, 8, 4, 2)
+        half = below.flatten(1, 2).any(1)                    # (w, 2)
+        slow = half.any(1)
+        slow_tiles += slow
+        fold = half[:, None, None, :].expand(shape)
+        for c, d in zip(cols, ds):
+            admitted += (d < thr) & fold
+            v = d.clamp(min=0.0)
+            lt0, lt1 = (v < d0) & fold, (v < d1) & fold
+            d1, i1 = (torch.where(lt0, d0, torch.where(lt1, v, d1)),
+                      torch.where(lt0, i0, torch.where(lt1, c, i1)))
+            d0, i0 = torch.where(lt0, v, d0), torch.where(lt0, c, i0)
+        ent = (d0, d1)[quarter]
+        new = torch.minimum(torch.minimum(thr, d1),
+                            torch.minimum(ent.amax(2, keepdim=True),
+                                          d1.amin(2, keepdim=True)))
+        thr = torch.where(slow[:, None, None, None], new, thr)
+    ld = torch.stack([d0, d1], -1)[..., 2 - k:]
+    li = torch.stack([i0, i1], -1)[..., 2 - k:]
+    cand_d = ld.permute(0, 3, 1, 2, 4).reshape(w * 16, 4 * k)
+    cand_i = li.permute(0, 3, 1, 2, 4).reshape(w * 16, 4 * k)
+    key = cand_d.clone()
+    key[cand_i == imax] = inf
+    order = torch.argsort(cand_i, dim=1)                     # column order
+    key, cand_i = torch.gather(key, 1, order), torch.gather(cand_i, 1, order)
+    top = torch.sort(key, dim=1, stable=True)
+    d_out = top.values[:n, :k]
+    i_out = torch.gather(cand_i, 1, top.indices)[:n, :k].to(torch.int32)
+    i_out = torch.where(torch.isfinite(d_out), i_out,
+                        torch.full_like(i_out, -1))
+    adm = admitted.permute(0, 3, 1, 2).reshape(w * 16, 4).sum(1)[:n]
+    return d_out, i_out, adm, slow_tiles
+
+
 def emulate_g_selection(dist):
     """Kernel G's selection over clamped (B, N, M) distances: tiles of 256
     columns, lane l of a warp owning columns 4 l + c and 128 + 4 l + c of
@@ -430,3 +498,67 @@ def test_g_selection_emulation_matches_pallas_with_masked_rows(c, n, m):
     np.testing.assert_array_equal(idx.numpy(), i_p.numpy())
     np.testing.assert_array_equal(idx.numpy(), np.asarray(i_j))
     np.testing.assert_array_equal(dist.numpy(), d_p.numpy())
+
+
+@pytest.fixture(scope="module")
+def f_ref(descs):
+    """The JAX kernel F (interpret mode, f32) on the shared descriptors."""
+    q, t = descs
+    return jax_kp.knn2_fused(jnp.asarray(q), jnp.asarray(t), interpret=True,
+                             bf16=False)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_f_selection_emulation_matches_plain_and_pallas(descs, f_ref, k):
+    """Kernel F's pair selection on ragged M (1,400 train rows: 21 full
+    tiles and one of 56), f32 distances: indices identical to the plain
+    version and to the JAX kernel (k = 1 as knn_match slices it),
+    distances identical to the plain version; the thresholds prune most
+    candidates (at this M a warp still takes the slow path on most tiles:
+    16 rows x 4 lanes, each with a running bound)."""
+    q, t = descs
+    d, i, adm, _ = emulate_f_selection(_raw_dists(_t(q), _t(t)), k)
+    d_p, i_p = knn_plain(_t(q), _t(t), k, bf16=False)
+    np.testing.assert_array_equal(i.numpy(), i_p.numpy())
+    np.testing.assert_array_equal(i.numpy(), np.asarray(f_ref[1])[:, :k])
+    np.testing.assert_array_equal(d.numpy(), d_p.numpy())
+    assert float(adm.mean()) < 0.1 * t.shape[0]
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_f_selection_emulation_ties_across_tiles_and_merges(k):
+    """Exact ties that straddle tiles and the quad merge (each of 30 rows at
+    columns c, c + 64, c + 67, c + 150; M 230, not a multiple of 64): the
+    lowest index first, as the plain version and the JAX kernel order
+    them."""
+    rng = np.random.default_rng(k)
+    base = rng.normal(size=(30, 24)).astype(np.float32)
+    t = rng.normal(size=(230, 24)).astype(np.float32)
+    first = np.arange(30) * 2
+    for off in (0, 64, 67, 150):
+        t[off + first] = base
+    q = base + 0.01 * rng.normal(size=(30, 24)).astype(np.float32)
+    d, i, _, _ = emulate_f_selection(_raw_dists(_t(q), _t(t)), k)
+    d_p, i_p = knn_plain(_t(q), _t(t), k, bf16=False)
+    _, i_j = jax_kp.knn2_fused(jnp.asarray(q), jnp.asarray(t),
+                               interpret=True, bf16=False)
+    np.testing.assert_array_equal(i.numpy(), i_p.numpy())
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_j)[:, :k])
+    np.testing.assert_array_equal(d.numpy(), d_p.numpy())
+    np.testing.assert_array_equal(i.numpy(), np.stack([first, first + 64],
+                                                      1)[:, :k])
+
+
+def test_f_selection_emulation_fewer_than_two_train_rows():
+    """M = 1: the second slot stays (inf, -1), as in the JAX kernel."""
+    rng = np.random.default_rng(6)
+    q = rng.normal(size=(21, 16)).astype(np.float32)
+    t = rng.normal(size=(1, 16)).astype(np.float32)
+    d, i, _, _ = emulate_f_selection(_raw_dists(_t(q), _t(t)), 2)
+    d_j, i_j = jax_kp.knn2_fused(jnp.asarray(q), jnp.asarray(t),
+                                 interpret=True, bf16=False)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_j))
+    assert np.all(i[:, 1].numpy() == -1) and np.all(i[:, 0].numpy() == 0)
+    assert np.all(np.isinf(d[:, 1].numpy()))
+    np.testing.assert_allclose(d[:, 0].numpy(), np.asarray(d_j)[:, 0],
+                               **DIST)

@@ -22,9 +22,12 @@ import opencv_dlco_tpu_torch.models.pj_rda as port_pj
 import opencv_dlco_tpu_torch.models.pr_rda as port_pr
 from opencv_dlco_tpu_torch.ops import fused_rda as port_fused
 from opencv_dlco_tpu_torch.ops.fused_rda import (
+    _step_times,
     draw_block_offsets,
     fused_block_grad,
+    fused_block_grad_plain,
     fused_block_train,
+    fused_block_train_plain,
     fused_block_train_wide,
     fused_block_train_wide_plain,
 )
@@ -154,6 +157,103 @@ def test_kernel_c_plain_matches_pallas(s_dim, bf16):
     tol = BF16 if bf16 else F32
     np.testing.assert_allclose(df.numpy(), np.asarray(df_j), **F32)
     np.testing.assert_allclose(w.numpy(), np.asarray(w_j), **tol)
+
+
+NARROW_WARPS = 16  # csrc/rda_narrow.cu's warps a CTA: its reduction chunks
+
+
+def narrow_partition(batch, n_ctas):
+    """Kernel C's rows of each CTA (csrc/rda_narrow.cu): CTA c owns block
+    rows [c B / G, (c+1) B / G) of every step; G = min(SMs, batch)."""
+    return [(c * batch // n_ctas, (c + 1) * batch // n_ctas)
+            for c in range(n_ctas)]
+
+
+def narrow_reduce_chunks(n_ctas):
+    """Kernel C's reduction order: warp w sums the partials of CTAs
+    [c0, c1) in CTA order, then lane l of warp 0 adds the 16 chunk sums
+    in warp order."""
+    return [(w * n_ctas // NARROW_WARPS, (w + 1) * n_ctas // NARROW_WARPS)
+            for w in range(NARROW_WARPS)]
+
+
+def _kernel_c_route(pos, neg, w, df_avg, t, mu, gamma, offs, *, batch,
+                    tile_b, n_ctas, grad=False):
+    """Kernel C's partition and summation order, emulated step by step:
+    CTA c adds viol * fd of its rows (``narrow_partition``) in row order,
+    warp w adds the partials of its CTAs (``narrow_reduce_chunks``) in CTA
+    order, the 16 chunk sums are added in warp order, then the RDA update
+    in f32 (each op rounded, as the kernel's __f*_rn). Returns (w, df), or
+    g of the first step with ``grad``."""
+    w = w.float().clone()
+    df = df_avg.float().clone()
+    for step, (ip, ineg) in enumerate(offs.tolist()):
+        p0, n0 = ip * tile_b, ineg * tile_b
+        fd = (pos[p0:p0 + batch] - neg[n0:n0 + batch]).float()
+        viol = (fd @ w.to(pos.dtype).float().T > -1.0).float()
+        partial = []
+        for r0, r1 in narrow_partition(batch, n_ctas):
+            acc = torch.zeros_like(w)
+            for r in range(r0, r1):
+                acc = acc + viol[r][:, None] * fd[r][None, :]
+            partial.append(acc)
+        g = torch.zeros_like(w)
+        for c0, c1 in narrow_reduce_chunks(n_ctas):
+            acc = torch.zeros_like(w)
+            for c in range(c0, c1):
+                acc = acc + partial[c]
+            g = g + acc
+        if grad:
+            return g
+        tf, tnf = _step_times(t, step, batch)
+        df = (tf * df + g) / tnf
+        w = torch.clamp(-torch.sqrt(tnf) / gamma[:, None] * (df + mu[:, None]),
+                        min=0.0)
+    return w, df
+
+
+@pytest.fixture(scope="module")
+def c_splits():
+    return _splits(16, n=1024, f=256)
+
+
+@pytest.mark.parametrize("n_steps", [1, 5])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("s_dim", [1, 3, 8])
+def test_kernel_c_route_emulation_matches_plain_and_pallas(c_splits, s_dim,
+                                                           bf16, n_steps):
+    """Kernel C's row partition over 132 CTAs (an H100's SMs; 1-2 rows a
+    CTA at batch 256) and its fixed reduction order, against the plain
+    version and the JAX kernel in interpret mode (F 256, batch 256, tile_b
+    128), at the tolerances of test_kernel_c_plain_matches_pallas; the
+    gradient mode (kernel D) against its plain version."""
+    pos, neg = c_splits
+    mu, gamma = _grid(s_dim)
+    key = jax.random.PRNGKey(s_dim + 10 * n_steps)
+    rng = np.random.default_rng(s_dim)
+    w0 = np.abs(rng.normal(0, 0.004, (s_dim, 256))).astype(np.float32)
+    z = np.zeros_like(w0)
+    w_j, df_j, _ = jax_fused.fused_block_train(
+        _j(pos, bf16), _j(neg, bf16), _j(w0), _j(z), jnp.int32(0), _j(mu),
+        _j(gamma), key, batch=256, n_steps=n_steps, tile_b=128,
+        interpret=True)
+    offs = jax_offsets(key, n_steps, 1024, 1024, 256, 128)
+    args = (_t(pos, bf16), _t(neg, bf16), _t(w0), _t(z), 0, _t(mu),
+            _t(gamma), offs)
+    w, df = _kernel_c_route(*args, batch=256, tile_b=128, n_ctas=132)
+    w_p, df_p, _ = fused_block_train_plain(*args, batch=256, tile_b=128)
+    tol = BF16 if bf16 else F32
+    for ref_w, ref_df in ((w_p.numpy(), df_p.numpy()),
+                          (np.asarray(w_j), np.asarray(df_j))):
+        np.testing.assert_allclose(df.numpy(), ref_df, **F32)
+        np.testing.assert_allclose(w.numpy(), ref_w, **tol)
+    g = _kernel_c_route(*args, batch=256, tile_b=128, n_ctas=132, grad=True)
+    ip, ineg = offs[0].tolist()
+    g_p = fused_block_grad_plain(_t(pos, bf16), _t(neg, bf16), _t(w0), ip,
+                                 ineg, batch=256, tile_b=128)
+    np.testing.assert_allclose(g.numpy(), g_p.numpy(),
+                               **(BF16 if bf16 else dict(rtol=2e-5,
+                                                         atol=2e-4)))
 
 
 # -- kernel B ------------------------------------------------------------------
