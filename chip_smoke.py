@@ -51,17 +51,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
    48 steps of the PR grid with each of its three kernels' device time a
    step from torch.profiler, C at S 1 and 8 and D with their device time
    a step and launches a call, E, F, H at the benchmark's shapes, F also
-   on the evaluation's own descriptors, F and H also at
-   the 120-D export's width and at widths past one D chunk, G on the SLAM
-   pose chunks' recorded inputs, also bit for bit against csrc/knn.cu's
-   batched route, which G ran on before knn_batched.cu) and times
+   on the evaluation's own descriptors in both modes (f32 through
+   knn_match(precision="highest")), F and H also at the 120-D export's
+   width and at widths past one D chunk, F and H in f32 at d 64 and d 576,
+   G on the SLAM pose chunks' recorded inputs, also against the f32 mode
+   of F's route on the same batches) and times
    kernel, plain version, one library call computing the same products or
    function where there is one (``library_ms``, a yardstick the port never
    calls), and the bound (bytes or operations over the card's peaks);
    then A's and B's device time inside 03_compdist and 04_prsweep
    (main-path launches x the per-call time) beside the stage seconds; F's
-   and H's (d 64) and G's (the SLAM chunk) device time and kernel launches
-   per call, and their library calls', come from torch.profiler.
+   and H's (d 64, bf16 and f32; d 576, f32), the f32 evaluation call's
+   and G's (the SLAM chunk) device time and kernel launches per call, and
+   their library calls', come from torch.profiler.
 7. Prints one JSON line with every kernel, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line. Any failed phase
    exits non-zero without that line.
@@ -90,8 +92,9 @@ PJ_BATCH = 200
 PJ_LOG_STEP = 500
 PJ_SWEEP_LOGS = 2
 EXPORT_DIMS = (48, 64, 80, 120)
-# published H100 SXM peaks (dense): bf16 tensor cores, f32 FFMA, HBM3
-PEAK = {"bf16": 989e12, "f32": 67e12}
+# published H100 SXM peaks (dense): bf16 and tf32 tensor cores, f32 FFMA,
+# HBM3
+PEAK = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # CUDA-core instructions that are not FMAs: the FP32 pipe issues one per
 # lane per clock (half the FFMA FLOP peak); compare/min/max run at half
@@ -217,12 +220,18 @@ def ptxas_summary(cuda_build):
             "rda_narrow": [("narrow_persistent (F 5120, f32)", (5120, 4)),
                            ("narrow_persistent (F 5120, bf16)", (5120, 2))],
             # kernel H at d 64, d 608 (the widest row the smoke checks) and
-            # d 1408 (queries streamed), F's pair selection at d 64, kernel
-            # G at any width
+            # d 1408 (queries streamed), F's pair selection at d 64; the
+            # f32 mode at d 64 and d 576 (queries streamed); kernel G at
+            # any width
             "knn_topk": [("knnk_wgmma (d 64)", (64, 0)),
                          ("knnk_wgmma pair selection (d 64)", (64, 1)),
                          ("knnk_wgmma (d 608)", (608, 0)),
-                         ("knnk_wgmma (d 1408)", (1408, 0))],
+                         ("knnk_wgmma (d 1408)", (1408, 0)),
+                         ("knnk_wgmma f32 (d 64)", (64, 2)),
+                         ("knnk_wgmma f32 pair selection (d 64)", (64, 3)),
+                         ("knnk_wgmma f32 (d 576)", (576, 2)),
+                         ("knnk_wgmma f32 pair selection (d 576)",
+                          (576, 3))],
             "knn_batched": [("knn2_batched", (0,))]}
     for lib, kernels in libs.items():
         fn = getattr(cuda_build.load(lib), f"{lib}_smem_bytes")
@@ -737,15 +746,17 @@ def clustered(torch, n, d, seed, scale=1.0):
     return (q * scale).contiguous(), (t * scale).contiguous()
 
 
-def hold_knn(torch, name, q, t, k, got, bf16):
+def hold_knn(torch, name, q, t, k, got, bf16, atol_of_mag=False):
     """Hold kernel F's or H's (dists, idx) for q, t against knn_plain on
-    the same inputs. f32 mode: indices identical, distances rtol/atol
-    1e-5. bf16 mode (tensor-core f32 accumulation vs cuBLAS, in another
-    order): identity >= 0.99 on every one of the k columns and of the
-    ratio-test matches, and agreeing entries within 1e-3 relative plus
-    1e-5 of |q|^2 + |t|^2 (the magnitude the expanded form cancels, whose
-    f32 rounding the two orders differ by). Returns (max abs err on
-    agreeing entries, the tolerance met)."""
+    the same inputs. f32 mode: indices identical except at near-ties,
+    distances rtol/atol 1e-5; with ``atol_of_mag`` the absolute part is
+    1e-5 of |q|^2 + |t|^2 (for descriptors whose norms put one f32 ulp of
+    that sum near or past 1e-5). bf16 mode (tensor-core f32 accumulation
+    vs cuBLAS, in another order): identity >= 0.99 on every one of the k
+    columns and of the ratio-test matches, and agreeing entries within
+    1e-3 relative plus 1e-5 of |q|^2 + |t|^2 (the magnitude the expanded
+    form cancels, whose f32 rounding the two orders differ by). Returns
+    (max abs err on agreeing entries, the tolerance met)."""
     from opencv_dlco_tpu_torch.ops.knn import ratio_test
     from opencv_dlco_tpu_torch.ops.knn_fused import knn_plain
 
@@ -754,7 +765,11 @@ def hold_knn(torch, name, q, t, k, got, bf16):
     torch.cuda.synchronize()
     same = ik == ip
     if not bf16:
-        err = check_close(name, dk, dp, (1e-5, 1e-5))
+        atol = 1e-5
+        if atol_of_mag:
+            atol = 1e-5 * ((q * q).sum(1)[:, None]
+                           + (t * t).sum(1)[ip.clamp(min=0).long()])
+        err = check_close(name, dk, dp, (1e-5, atol))
         # indices differ only at near-ties (two summation orders of the
         # same f32 distances): the kernel's pick is at the plain list's
         # distance there within the tolerance, and no row repeats an index
@@ -764,7 +779,8 @@ def hold_knn(torch, name, q, t, k, got, bf16):
         d_pick = torch.clamp((qs * qs).sum(1) + (ts * ts).sum(1)
                              - 2.0 * (qs * ts).sum(1), min=0.0)
         ref = dp[rows, slots]
-        tie = (pick >= 0) & ((d_pick - ref).abs() <= 1e-5 + 1e-5 * ref.abs())
+        at = atol[rows, slots] if atol_of_mag else atol
+        tie = (pick >= 0) & ((d_pick - ref).abs() <= at + 1e-5 * ref.abs())
         srt = ik.sort(dim=1).values
         dup = (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)
         if not bool(tie.all()) or bool(dup.any()):
@@ -772,7 +788,8 @@ def hold_knn(torch, name, q, t, k, got, bf16):
                 f"{name}: {int((~tie).sum())} indices differ in f32 mode "
                 f"beyond near-ties, {int(dup.sum())} repeated")
         return err, (f"indices identical except {rows.numel()} near-tie swaps "
-                     f"of {ik.numel()}, rtol/atol 1e-5")
+                     f"of {ik.numel()}, rtol 1e-5, atol 1e-5"
+                     + (" (|q|^2+|t|^2)" if atol_of_mag else ""))
     cols = same.float().mean(dim=0)
     rt = 1.0
     if k >= 2:
@@ -798,6 +815,21 @@ def hold_knn(torch, name, q, t, k, got, bf16):
         f"{rt:.5f}, agreeing distances within 1e-3 rel + 1e-5 (|q|^2+|t|^2)")
 
 
+def knn_bound(n, m, d, k, bf16):
+    """Kernel F's or H's bound: the inputs read once (bf16 or f32), the
+    outputs written once, the products (bf16: one pass at the bf16 peak;
+    f32: the least the card takes at f32 accuracy, three tf32 passes at
+    the tf32 peak) and knn_topk.cu's ~3 CUDA-core instructions a candidate
+    (an add, an fma, a min). Returns (ms, what bounds it, and in f32 the
+    bound of one f32 FFMA pass beside it)."""
+    n_bytes = (n + m) * d * (2 if bf16 else 4) + n * k * 8
+    ops, kind = (2 * n * m * d, "bf16") if bf16 else (6 * n * m * d, "tf32")
+    bnd, by = bound_ms(n_bytes, ops, kind, f32_instr=3 * n * m)
+    ffma = None if bf16 else bound_ms(n_bytes, 2 * n * m * d, "f32",
+                                      f32_instr=3 * n * m)[0]
+    return bnd, by, ffma
+
+
 def knn_row(torch, name, fn, k, n, d, bf16, seed, profile=False):
     """One kernel-vs-plain check of F or H with its times and bound; with
     ``profile``, the kernel's and the library call's device time and
@@ -808,12 +840,7 @@ def knn_row(torch, name, fn, k, n, d, bf16, seed, profile=False):
     # |q|^2 + |t|^2 is then ~1e-7, below the 1e-5 tolerance
     q, t = clustered(torch, n, d, seed, scale=1.0 if bf16 else d ** -0.5)
     err, tol = hold_knn(torch, name, q, t, k, fn(q, t, bf16=bf16), bf16)
-    el = 2 if bf16 else 4
-    # epilogue and selection, CUDA-core instructions per candidate: ~3 in
-    # knn_topk.cu (bf16: an add, an fma, a min), ~4 in knn.cu (f32)
-    bnd, by = bound_ms(2 * n * d * el + n * k * 8,
-                       2 * n * n * d, "bf16" if bf16 else "f32",
-                       f32_instr=(3 if bf16 else 4) * n * n)
+    bnd, by, ffma = knn_bound(n, n, d, k, bf16)
     dt = torch.bfloat16 if bf16 else torch.float32
     qc, tc = q.to(dt), t.to(dt)
     row = dict(
@@ -824,6 +851,8 @@ def knn_row(torch, name, fn, k, n, d, bf16, seed, profile=False):
         library_ms=time_ms(torch, lambda: torch.matmul(qc, tc.T), 5),
         shape=f"{n} x {n}, d {d}, k {k}, {'bf16' if bf16 else 'f32'}",
         tolerance=tol)
+    if not bf16:
+        row["bound_ffma_ms"] = ffma
     if profile:
         row["profiler"] = profile_calls(torch, lambda: fn(q, t, bf16=bf16), 3)
         row["profiler"]["library"] = profile_calls(
@@ -844,9 +873,7 @@ def f_eval_row(torch, q, t):
     m = t.shape[0]
     err, tol = hold_knn(torch, "F[evaluation]", q, t, 2, knn2_fused(q, t),
                         True)
-    # knn_topk.cu's ~3 CUDA-core instructions per candidate
-    bnd, by = bound_ms(2 * (n + m) * d * 2 + n * 2 * 8, 2 * n * m * d,
-                       "bf16", f32_instr=3 * n * m)
+    bnd, by, _ = knn_bound(n, m, d, 2, True)
     qc, tc = q.to(torch.bfloat16), t.to(torch.bfloat16)
     prof = profile_calls(torch, lambda: knn2_fused(q, t), 10)
     prof["library"] = profile_calls(torch, lambda: torch.matmul(qc, tc.T), 10)
@@ -860,6 +887,62 @@ def f_eval_row(torch, q, t):
         library_ms=time_ms(torch, lambda: torch.matmul(qc, tc.T), 20),
         shape=f"{n} x {m}, d {d}, k 2, bf16 (the evaluation's descriptors)",
         tolerance=tol, profiler=prof)
+
+
+def exact_dev(torch, q, t, got):
+    """The largest |dist - exact| over the listed entries of a kNN result,
+    exact = |q - t|^2 in f64 at the listed index: how far an f32 route
+    lies from the true distances it reports."""
+    d, i = got
+    real = i >= 0
+    rows = torch.arange(q.shape[0], device=q.device)[:, None].expand_as(i)
+    ex = ((q[rows[real]].double() - t[i[real].long()].double()) ** 2).sum(1)
+    return float((d[real].double() - ex).abs().max())
+
+
+def f32_eval_row(torch, q, t):
+    """The evaluation's 2-NN at HIGHEST parity (knn_match(precision=
+    "highest"): kernel F's f32 mode) on the evaluation's own descriptors,
+    held by hold_knn's f32 rule with the absolute part 1e-5 of
+    |q|^2 + |t|^2: these descriptors' |q|^2 is ~40, and the plain version
+    itself lies up to ~3e-5 from the exact (f64) distances, so a flat 1e-5
+    would hold the kernel to cuBLAS's summation order. Reports both
+    routes' largest deviation from the exact distances, with the times,
+    bound, the f32 matmul yardstick (TF32 off) and device time and
+    launches per call."""
+    from opencv_dlco_tpu_torch.ops.knn import knn_match
+    from opencv_dlco_tpu_torch.ops.knn_fused import knn2_fused, knn_plain
+
+    n, d = q.shape
+    m = t.shape[0]
+
+    def run():
+        return knn_match(q, t, k=2, precision="highest")
+
+    before = knn2_fused.launches
+    got = run()
+    if knn2_fused.launches != before + 1:
+        raise AssertionError("knn_match(precision='highest') did not launch "
+                             "knn2_fused")
+    plain = knn_plain(q, t, 2, bf16=False)
+    vs_exact = dict(kernel=exact_dev(torch, q, t, got),
+                    plain=exact_dev(torch, q, t, plain))
+    err, tol = hold_knn(torch, "F[evaluation, f32]", q, t, 2, got, False,
+                        atol_of_mag=True)
+    bnd, by, ffma = knn_bound(n, m, d, 2, False)
+    prof = profile_calls(torch, run, 10)
+    prof["library"] = profile_calls(torch, lambda: torch.matmul(q, t.T), 10)
+    return dict(
+        name="knn2_fused", route="cuda",
+        source="opencv_dlco_tpu_torch/csrc/knn_topk.cu",
+        replaces="opencv_dlco_tpu/ops/knn_pallas.py:69", max_abs_err=err,
+        ms=time_ms(torch, run, 20),
+        plain_ms=time_ms(torch, lambda: knn_plain(q, t, 2, bf16=False), 5),
+        bound_ms=bnd, bound_by=by, bound_ffma_ms=ffma,
+        library_ms=time_ms(torch, lambda: torch.matmul(q, t.T), 20),
+        shape=f"{n} x {m}, d {d}, k 2, f32 (the evaluation's descriptors, "
+              f"precision='highest')",
+        tolerance=tol, max_abs_dev_from_exact=vs_exact, profiler=prof)
 
 
 def kernel_checks_2(torch):
@@ -905,30 +988,29 @@ def kernel_checks_2(torch):
     def knnk10(q, t, bf16):
         return knnk_fused(q, t, 10, bf16=bf16)
 
-    # F and H run csrc/knn_topk.cu in bf16 (F: its pair selection) and
-    # csrc/knn.cu in f32
-    for key, name, fn, k, line, src16 in (
-            ("F", "knn2_fused", knn2_fused, 2, 69, "knn_topk.cu"),
-            ("H", "knnk_fused", knnk10, 10, 110, "knn_topk.cu")):
+    # F and H run csrc/knn_topk.cu in both modes (F: its pair selection)
+    for key, name, fn, k, line in (
+            ("F", "knn2_fused", knn2_fused, 2, 69),
+            ("H", "knnk_fused", knnk10, 10, 110)):
         base = dict(name=name, route="cuda",
+                    source="opencv_dlco_tpu_torch/csrc/knn_topk.cu",
                     replaces=f"opencv_dlco_tpu/ops/knn_pallas.py:{line}")
-        b16 = dict(base, source=f"opencv_dlco_tpu_torch/csrc/{src16}")
-        b32 = dict(base, source="opencv_dlco_tpu_torch/csrc/knn.cu")
         for d in (64, 128):
-            results[f"{key}{d}"] = dict(b16, **knn_row(
+            results[f"{key}{d}"] = dict(base, **knn_row(
                 torch, f"{key}[d={d}]", fn, k, KNN_N, d, True, seed=d + k,
                 profile=d == 64))
-        results[f"{key}f32"] = dict(b32, **knn_row(
-            torch, f"{key}[f32]", fn, k, KNN_F32_N, 64, False, seed=k))
+        results[f"{key}f32"] = dict(base, **knn_row(
+            torch, f"{key}[f32]", fn, k, KNN_F32_N, 64, False, seed=k,
+            profile=True))
         # the 120-D export's width and widths past one D chunk (bf16 600:
-        # 10 chunks of 64; f32 576 in 5 chunks of 128)
-        results[f"{key}120"] = dict(b16, **knn_row(
+        # 10 chunks of 64; f32 576: 18 chunks of 32, queries streamed)
+        results[f"{key}120"] = dict(base, **knn_row(
             torch, f"{key}[d=120]", fn, k, KNN_WIDE_N, 120, True, seed=k))
-        results[f"{key}600"] = dict(b16, **knn_row(
+        results[f"{key}600"] = dict(base, **knn_row(
             torch, f"{key}[d=600]", fn, k, KNN_F32_N, 600, True, seed=k))
-        results[f"{key}f32_576"] = dict(b32, **knn_row(
+        results[f"{key}f32_576"] = dict(base, **knn_row(
             torch, f"{key}[f32, d=576]", fn, k, KNN_F32_N, 576, False,
-            seed=k))
+            seed=k, profile=True))
     return results
 
 
@@ -1150,18 +1232,20 @@ def g_row(torch, name, q, t, what):
         profiler=prof)
 
 
-def g_chunks_vs_knn_cu(torch, chunks):
+def g_chunks_vs_f32_route(torch, chunks):
     """G on every recorded pose chunk against its plain version (hold_g),
-    and bit for bit against csrc/knn.cu's batched f32 route (G's kernel
-    before knn_batched.cu, still built for F and H's f32 mode), with its
-    device time and launches per call on the first chunk, and how many of
-    the pose chunk's ratio-test matches the two routes' outputs decide
-    differently."""
+    and against the f32 mode of F's route on the same batches
+    (csrc/knn_topk.cu: the 3xTF32 split product and the pair selection):
+    how many chunks the two give bit for bit, how many indices differ, the
+    largest distance difference, and how many of the pose chunk's
+    ratio-test matches the two routes' outputs decide differently; with
+    the f32 route's time, device time and launches per call on the first
+    chunk."""
     from opencv_dlco_tpu_torch.ops import knn_fused
     from opencv_dlco_tpu_torch.ops.knn import ratio_test
     from opencv_dlco_tpu_torch.pipeline.slam import SlamConfig
 
-    def knn_cu(q, t):
+    def f32_route(q, t):
         return knn_fused._fused_call(q, t, 2, bf16=False,
                                      wrapper=knn_fused.knn2_fused)
 
@@ -1173,18 +1257,19 @@ def g_chunks_vs_knn_cu(torch, chunks):
     for i, (q, t) in enumerate(chunks):
         dk, ik = knn_fused.knn2_fused_batched(q, t)
         swaps += hold_g(torch, f"G[pose chunk {i}]", q, t, (dk, ik))[3]
-        do, io = knn_cu(q, t)
+        do, io = f32_route(q, t)
         same += int(torch.equal(dk, do) and torch.equal(ik, io))
         idx_diff += int((ik != io).sum())
         d_diff = max(d_diff, float((dk - do).abs().max()))
         match_diff += int((matches(dk, ik) != matches(do, io)).sum())
     q, t = chunks[0]
     return dict(chunks=len(chunks), near_tie_swaps_vs_plain=swaps,
-                bit_identical_to_knn_cu=same, idx_differing=idx_diff,
+                bit_identical_to_f32_route=same, idx_differing=idx_diff,
                 max_abs_dist_diff=d_diff,
                 ratio_test_matches_differing=match_diff,
-                knn_cu_ms=time_ms(torch, lambda: knn_cu(q, t), 20),
-                knn_cu_profiler=profile_calls(torch, lambda: knn_cu(q, t), 20))
+                f32_route_ms=time_ms(torch, lambda: f32_route(q, t), 20),
+                f32_route_profiler=profile_calls(
+                    torch, lambda: f32_route(q, t), 20))
 
 
 def kernel_checks_3(torch, chunks):
@@ -1194,7 +1279,7 @@ def kernel_checks_3(torch, chunks):
     same masks (~20% of rows at +-1e6)."""
     q, t = chunks[0]
     rows = {"G": g_row(torch, "G[SLAM chunk]", q, t, "the SLAM pose chunk")}
-    rows["G"]["pose_chunks"] = g_chunks_vs_knn_cu(torch, chunks)
+    rows["G"]["pose_chunks"] = g_chunks_vs_f32_route(torch, chunks)
     c, n, _ = q.shape
     g = torch.Generator(device="cuda").manual_seed(64)
     real = q[q.abs().amax(-1) < 1e5]
@@ -1357,6 +1442,7 @@ def main() -> int:
         res = kernel_checks(torch, ws, out["dist"])
         res.update(kernel_checks_2(torch))
         res["Feval"] = f_eval_row(torch, *eval_qt)
+        res["Feval_f32"] = f32_eval_row(torch, *eval_qt)
         res.update(kernel_checks_3(torch, chunks))
         steady = rerun_slam_path(torch, np, slam_inputs, recorder)
         print("SLAM steady state:", json.dumps(steady), flush=True)

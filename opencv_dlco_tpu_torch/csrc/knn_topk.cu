@@ -1,24 +1,54 @@
-// Kernels H and F on Hopper: top-k nearest neighbours (1 <= k <= 16) of
-// bf16 descriptors, products on wgmma and a pruned, deferred selection.
+// Kernels H and F on Hopper: top-k nearest neighbours (1 <= k <= 16),
+// products on wgmma and a pruned, deferred selection, in two element
+// modes: bf16 and f32 (HIGHEST parity, as a 3xTF32 split product).
 //
 // Replaces the TPU kernels opencv_dlco_tpu/ops/knn_pallas.py::_knnk_kernel
 // (entry point knnk_fused, kernel H) and ::_knn2_kernel (entry point
-// knn2_fused, kernel F: the same function at k = 2) in their bf16 mode, at
-// every width; the f32 modes stay on knn.cu's kernel. For queries
-// q (B, N, D) and train rows t (B, M, D), rounded to bf16:
+// knn2_fused, kernel F: the same function at k = 2), in both modes, at
+// every width. For queries q (B, N, D) and train rows t (B, M, D):
 //   dist[n, m] = max(|q_n|^2 + |t_m|^2 - 2 q_n . t_m, 0)
-// with the norms summed in f32 from the rounded values, and per query the k
-// smallest (dist, m) in lexicographic order (equal distances go to the
-// lowest train index), ascending; (inf, -1) fills the slots of a query with
-// fewer than k neighbours. The expression is evaluated as
-// fma(-2, g, nq + nt): 2 g is exact in f32, so the fma rounds once, exactly
-// as (nq + nt) - 2 g does.
+// and per query the k smallest (dist, m) in lexicographic order (equal
+// distances go to the lowest train index), ascending; (inf, -1) fills the
+// slots of a query with fewer than k neighbours. The expression is
+// evaluated as fma(-2, g, nq + nt): 2 g is exact in f32, so the fma rounds
+// once, exactly as (nq + nt) - 2 g does.
+//
+// bf16 mode: q and t rounded to bf16; the norms are summed in f32 from the
+// rounded values, inside the kernel.
+//
+// f32 mode (the element path is the template parameter F32): a pre-pass
+// (split_tf32, one launch for q and t) splits every element x into
+//   hi = rna_tf32(x),  lo = rna_tf32(x - hi)
+// (round to the 10-bit tf32 mantissa, ties away from zero; x - hi is exact
+// in f32 and |x - hi| <= 2^-11 |x|, so |x - hi - lo| <= 2^-22 |x|) and
+// writes both as planes of f32 words, with each row's squared norm from
+// the unsplit x (summed in f64, rounded once). The kernel then forms
+//   q . t = lo_q . hi_t + hi_q . lo_t + hi_q . hi_t
+// as three wgmma tf32 products a k8 step; tf32 products are exact, and
+// the dropped lo_q . lo_t is below 2^-22 |q_i t_i| an element. The tensor
+// cores' f32 accumulation truncates, at a cost that grows with the
+// accumulator's magnitude and the number of accumulating products (216
+// into one accumulator over d 576 put errors of 1.7e-5 on distances near
+// 2, unit-norm rows, on the card). So the small products accumulate over
+// the tile in their own accumulator, where truncation costs ~2^-11 as
+// much, and hi_q . hi_t in a fresh accumulator each K chunk (32
+// elements: 4 products), whose sums are added in registers in chunk
+// order, rounded to nearest; the two parts are added last. Three
+// accumulator sets, so the f32 mode runs one consumer warpgroup (64
+// queries a CTA, up to 255 registers a thread). The selection and
+// epilogue are the bf16 mode's. A K chunk is 32 f32 words a row (128
+// bytes, as 64 bf16), copied with both planes by one 3-D TMA box, so an
+// element costs 8 bytes of shared memory against bf16's 2: the 64
+// queries stay resident up to d 288, and wider rows stream them.
 //
 // Bound on an H100 at 65,536 x 65,536, d = 64: the products are 0.55 TFLOP,
 // 0.56 ms at 989 TFLOP/s; each candidate costs ~3 CUDA-core instructions
 // (an add, an fma and a min), 13 G instructions, 0.39 ms. The two run on
 // different units, so the kernel can approach the larger of them only if
-// they overlap.
+// they overlap. In f32 at 8,192 x 8,192, d = 576: 3 x 77.3 GFLOP of tf32
+// products, 0.469 ms at 495 TFLOP/s (one f32 FFMA pass would take 1.154 ms
+// at 67 TFLOP/s), beside 6 us of selection; the split reads 37.7 MB and
+// writes 75.5 MB, 0.034 ms at 3.35 TB/s.
 //
 // Design: one launch. A CTA owns 64 NCW queries, resident in shared memory
 // (NCW = 3 consumer warpgroups of 64 for k <= 12, 2 for larger k, 1 for
@@ -31,9 +61,10 @@
 // then carries the query chunk beside the train chunk, re-read from L2 for
 // every train tile. Warp 0 of the first warpgroup issues the copies; warps
 // 1 and 2 sum each arrived tile's squared train norms into a ring of norm
-// slots in shared memory (+inf past the last train row). The query norms
-// come from the resident tile (streamed: from the first train tile's
-// stages). Each consumer warpgroup runs
+// slots in shared memory (+inf past the last train row; f32: they copy the
+// pre-pass's norms). The query norms come from the resident tile
+// (streamed: from the first train tile's stages; f32: from the pre-pass).
+// Each consumer warpgroup runs
 // wgmma m64n64k16 from shared memory (queries and train rows both K-major)
 // and folds its tile while the other warpgroups' products run. The
 // accumulator keeps one query row on the four lanes of a quad, as mma.sync
@@ -88,7 +119,9 @@ namespace {
 
 constexpr int BN = 64;                      // train rows per tile
 constexpr int BN_PAIR = 128;                // ... with the pair selection
+constexpr int ROWB = 128;                   // bytes of a row's K chunk
 constexpr int KC = 64;                      // bf16 elements per K chunk
+constexpr int KC32 = 32;                    // f32 (tf32) elements per K chunk
 constexpr int WGQ = 64;                     // queries per consumer warpgroup
 constexpr int MAX_STAGES = 8;
 constexpr int NTS = 4;                      // norm slots (tiles in flight)
@@ -96,9 +129,14 @@ constexpr int QL = 10;                      // queued column pairs per lane and 
 constexpr int N_NORM_LANES = 64;            // warps 1 and 2
 constexpr int IMAX = 0x7fffffff;
 
+// elements of a K chunk, and the planes of an operand's chunk: bf16 one,
+// f32 two (its tf32 hi and lo parts, lo after hi)
+__host__ __device__ constexpr int k_chunk(bool f32) { return f32 ? KC32 : KC; }
+__host__ __device__ constexpr int planes(bool f32) { return f32 ? 2 : 1; }
+
 // queries a CTA holds per K chunk, in bytes
-__host__ __device__ constexpr int q_chunk_bytes(int ncw) {
-  return ncw * WGQ * KC * 2;
+__host__ __device__ constexpr int q_chunk_bytes(int ncw, bool f32) {
+  return ncw * WGQ * ROWB * planes(f32);
 }
 
 // the consumers' queues: (row, slot, consumer thread) of a column pair
@@ -108,29 +146,48 @@ __host__ __device__ constexpr int queue_bytes(int ncw, bool pair) {
   return pair ? 0 : 2 * QL * ncw * 128 * 16;
 }
 
-// train rows per tile, and the bytes of a tile's K chunk (8 or 16 KB)
+// train rows per tile, and the bytes of a tile's K chunk (8 or 16 KB a
+// plane)
 __host__ __device__ constexpr int tile_rows(bool pair) {
   return pair ? BN_PAIR : BN;
 }
-__host__ __device__ constexpr int train_chunk_bytes(bool pair) {
-  return tile_rows(pair) * KC * 2;
+__host__ __device__ constexpr int train_chunk_bytes(bool pair, bool f32) {
+  return tile_rows(pair) * ROWB * planes(f32);
 }
 
 // bytes of one stage: a train chunk, and with streamed queries the CTA's
 // query chunk after it
 __host__ __device__ constexpr int stage_bytes(int ncw, bool qstream,
-                                              bool pair) {
-  return train_chunk_bytes(pair) + (qstream ? q_chunk_bytes(ncw) : 0);
+                                              bool pair, bool f32) {
+  return train_chunk_bytes(pair, f32) +
+         (qstream ? q_chunk_bytes(ncw, f32) : 0);
 }
 
 // dynamic shared memory: alignment slack, the resident queries (none when
 // streamed), the stage ring, the queues, the norm slots and the barriers
 __host__ __device__ constexpr size_t smem_bytes(int ncw, int nch, int stages,
-                                                bool qstream, bool pair) {
-  return 1024 + (qstream ? 0 : static_cast<size_t>(nch) * q_chunk_bytes(ncw)) +
-         static_cast<size_t>(stages) * stage_bytes(ncw, qstream, pair) +
+                                                bool qstream, bool pair,
+                                                bool f32) {
+  return 1024 +
+         (qstream ? 0 : static_cast<size_t>(nch) * q_chunk_bytes(ncw, f32)) +
+         static_cast<size_t>(stages) * stage_bytes(ncw, qstream, pair, f32) +
          queue_bytes(ncw, pair) + NTS * tile_rows(pair) * 4 +
          8 * (2 * MAX_STAGES + 1 + 2 * NTS);
+}
+
+// f32 row width the split pads to: whole 16-byte units (the tensor maps'
+// row stride), and at least one K chunk
+__host__ __device__ constexpr int split_width(int d) {
+  return d < KC32 ? KC32 : (d + 3) & ~3;
+}
+
+// x rounded to tf32, to nearest with ties away from zero: the value
+// cvt.rna.tf32.f32 gives, low 13 mantissa bits zero (inf and nan as they
+// are)
+__device__ __forceinline__ float tf32_rna(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7f800000u) == 0x7f800000u) return x;
+  return __uint_as_float((u + 0x1000u) & 0xffffe000u);
 }
 
 __device__ __forceinline__ bool lex_less(float d, int i, float e, int j) {
@@ -267,20 +324,26 @@ __device__ __forceinline__ void fold_pairs(const float (&acc)[NA], int h,
     }
 }
 
-// QS: the queries stream through the stages (else they are resident)
-template <int KMAX, int NCW, bool QS>
+// QS: the queries stream through the stages (else they are resident).
+// F32: the operands are split f32 rows (planes hi and lo, tf32 values) and
+// the squared norms come precomputed in nq_g and nt_g; else bf16 rows whose
+// norms the kernel sums (nq_g and nt_g unused).
+template <int KMAX, int NCW, bool QS, bool F32>
 __global__ void __launch_bounds__(128 * (NCW + 1), 1)
 knnk_wgmma(const __grid_constant__ CUtensorMap tm_q,
-           const __grid_constant__ CUtensorMap tm_t, float* __restrict__ od,
-           int* __restrict__ oi, int n, int m, int nch, int k, int stages) {
+           const __grid_constant__ CUtensorMap tm_t,
+           const float* __restrict__ nq_g, const float* __restrict__ nt_g,
+           float* __restrict__ od, int* __restrict__ oi, int n, int m,
+           int nch, int k, int stages) {
   constexpr int TQ = NCW * WGQ;
-  constexpr int QCB = q_chunk_bytes(NCW);
+  constexpr int KCH = k_chunk(F32);               // elements per K chunk
+  constexpr int QCB = q_chunk_bytes(NCW, F32);
   constexpr int CT = 128 * NCW;  // consumer threads
   constexpr bool PAIR = KMAX == 2;
   constexpr int TBN = tile_rows(PAIR);            // train rows per tile
-  constexpr int TCB = train_chunk_bytes(PAIR);
+  constexpr int TCB = train_chunk_bytes(PAIR, F32);
   constexpr int NA = TBN / 2;                     // accumulators a thread
-  constexpr int sb = stage_bytes(NCW, QS, PAIR);
+  constexpr int sb = stage_bytes(NCW, QS, PAIR, F32);
   constexpr int QB = queue_bytes(NCW, PAIR);
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -304,7 +367,8 @@ knnk_wgmma(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 4 * NCW + N_NORM_LANES);
+      // the consumer warps, and the norm lanes where they read the stage
+      mbar_init(empty + 8 * s, 4 * NCW + (F32 ? 0 : N_NORM_LANES));
     }
     mbar_init(qfull, 1);
     for (int s = 0; s < NTS; ++s) {
@@ -319,20 +383,39 @@ knnk_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   if (wg == 0) {
     if (warp == 0 && lane == 0) {  // producer: the queries, then the stages
+      // K chunk c of rows from ``row`` on (every plane of an f32 operand)
+      auto load = [&](uint32_t dst, const CUtensorMap* tm, uint32_t bar,
+                      int c, int row) {
+        if constexpr (F32)
+          tma_load_3d(dst, tm, bar, c * KCH, row, 0);
+        else
+          tma_load_2d(dst, tm, bar, c * KCH, row);
+      };
       if (!QS) {
         mbar_expect_tx(qfull, nch * QCB);
         for (int c = 0; c < nch; ++c)
-          tma_load_2d(qs + c * QCB, &tm_q, qfull, c * KC, b * n + n0);
+          load(qs + c * QCB, &tm_q, qfull, c, b * n + n0);
       }
       for (int it = 0; it < steps; ++it) {
         const int s = it % stages, t = it / nch, c = it - t * nch;
         mbar_wait(empty + 8 * s, ((it / stages) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, sb);
-        tma_load_2d(st0 + s * sb, &tm_t, full + 8 * s, c * KC,
-                    b * m + t * TBN);
-        if (QS)
-          tma_load_2d(st0 + s * sb + TCB, &tm_q, full + 8 * s, c * KC,
-                      b * n + n0);
+        load(st0 + s * sb, &tm_t, full + 8 * s, c, b * m + t * TBN);
+        if (QS) load(st0 + s * sb + TCB, &tm_q, full + 8 * s, c, b * n + n0);
+      }
+    } else if ((warp == 1 || warp == 2) && F32) {  // train norms from nt_g
+      constexpr int RL = TBN / N_NORM_LANES;
+      const int r = (warp - 1) * 32 + lane;
+      for (int t = 0; t < ntiles; ++t) {
+        const int slot = t % NTS;
+        mbar_wait(ntempty + 8 * slot, ((t / NTS) & 1) ^ 1);
+#pragma unroll
+        for (int h = 0; h < RL; ++h) {
+          const int rr = r + N_NORM_LANES * h, row = t * TBN + rr;
+          nt_ring[slot * TBN + rr] =
+              row < m ? nt_g[static_cast<size_t>(b) * m + row] : INFINITY;
+        }
+        mbar_arrive(ntfull + 8 * slot);
       }
     } else if (warp == 1 || warp == 2) {  // train norms, rows r + 64 h
       constexpr int RL = TBN / N_NORM_LANES;      // rows a lane
@@ -396,8 +479,15 @@ knnk_wgmma(const __grid_constant__ CUtensorMap tm_q,
   };
   if (!QS) {
     mbar_wait(qfull, 0);
-    for (int c = 0; c < nch; ++c) add_query_chunk(qs_ptr + c * QCB);
-    finish_query_norms();
+    if constexpr (!F32) {
+      for (int c = 0; c < nch; ++c) add_query_chunk(qs_ptr + c * QCB);
+      finish_query_norms();
+    }
+  }
+  if constexpr (F32) {
+    const size_t row0 = static_cast<size_t>(b) * n + n0;
+    nq0 = n0 + r0 < n ? nq_g[row0 + r0] : 0.f;
+    nq1 = n0 + r1 < n ? nq_g[row0 + r1] : 0.f;
   }
 
   float ld0[KMAX], ld1[KMAX];
@@ -464,33 +554,68 @@ knnk_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
   // descriptors of the warpgroup's first query chunk (resident, or in
   // stage 0 when streamed) and of stage 0's train chunk; a byte offset o
-  // inside shared memory advances a descriptor by o / 16
+  // inside shared memory advances a descriptor by o / 16. An f32 chunk's
+  // lo plane follows its hi plane: TQ (queries) or TBN (train) rows on.
   const uint64_t da0 = sw128_desc(
-      (QS ? st0 + TCB : qs) + cw * (QCB / NCW), 16, 1024);
+      (QS ? st0 + TCB : qs) + cw * (WGQ * ROWB), 16, 1024);
   const uint64_t db0 = sw128_desc(st0, 16, 1024);
+  constexpr int QLO = TQ * ROWB / 16, TLO = TBN * ROWB / 16;
 
   float acc[NA];
+  // f32: the K chunks' hi.hi products summed in chunk order, and the small
+  // products lo_q.hi_t + hi_q.lo_t of the whole tile in their own
+  // accumulator
+  float tot[F32 ? NA : 1], sml[F32 ? NA : 1];
   for (int t = 0; t < ntiles; ++t) {
     for (int c = 0; c < nch; ++c) {
       const int it = t * nch + c, s = it % stages;
       mbar_wait(full + 8 * s, (it / stages) & 1);
-      if (QS && t == 0) add_query_chunk(st_ptr + s * sb + TCB);
+      if (!F32 && QS && t == 0) add_query_chunk(st_ptr + s * sb + TCB);
       wgmma_fence();
       const uint64_t da = da0 + (QS ? s * (sb / 16) : c * (QCB / 16));
       const uint64_t db = db0 + s * (sb / 16);
+      if constexpr (F32) {
+        // q.t = lo_q.hi_t + hi_q.lo_t + hi_q.hi_t: the small terms into
+        // sml, the chunk's hi.hi into a fresh acc (lo_q.lo_t, below
+        // 2^-22 |q_i t_i|, is left out)
 #pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk) {
-        if constexpr (TBN == 128)
-          wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
-        else
-          wgmma_m64n64k16(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+        for (int kk = 0; kk < KC32 / 8; ++kk) {
+          const uint64_t a = da + 2 * kk, bb = db + 2 * kk;
+          if constexpr (TBN == 128) {
+            wgmma_m64n128k8_tf32(sml, a + QLO, bb, (c | kk) != 0);
+            wgmma_m64n128k8_tf32(sml, a, bb + TLO, 1);
+            wgmma_m64n128k8_tf32(acc, a, bb, kk != 0);
+          } else {
+            wgmma_m64n64k8_tf32(sml, a + QLO, bb, (c | kk) != 0);
+            wgmma_m64n64k8_tf32(sml, a, bb + TLO, 1);
+            wgmma_m64n64k8_tf32(acc, a, bb, kk != 0);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < KC / 16; ++kk) {
+          if constexpr (TBN == 128)
+            wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+          else
+            wgmma_m64n64k16(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(acc);
+      if constexpr (F32) fence_acc(sml);
       if (lane == 0) mbar_arrive(empty + 8 * s);
+      if constexpr (F32) {
+#pragma unroll
+        for (int i = 0; i < NA; ++i)
+          tot[i] = c == 0 ? acc[i] : tot[i] + acc[i];
+      }
     }
-    if (QS && t == 0) finish_query_norms();
+    if (!F32 && QS && t == 0) finish_query_norms();
+    if constexpr (F32) {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[i] = tot[i] + sml[i];
+    }
 
     // n8 slice j holds columns 8 j + 2 q4 + {0, 1} of rows r0 (acc
     // 4 j + e) and r1 (4 j + 2 + e). Fast path: the distances, in place,
@@ -579,7 +704,7 @@ struct Config {
   bool qstream = false;
 };
 
-Config pick_config(int nch, int ncw_hi, bool pair) {
+Config pick_config(int nch, int ncw_hi, bool pair, bool f32) {
   Config cfg;
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -589,7 +714,7 @@ Config pick_config(int nch, int ncw_hi, bool pair) {
   const int tries[3][2] = {{ncw_hi, 0}, {1, 0}, {1, 1}};
   for (const auto& tr : tries)
     for (int s = MAX_STAGES; s >= 2; --s) {
-      const size_t bytes = smem_bytes(tr[0], nch, s, tr[1] != 0, pair);
+      const size_t bytes = smem_bytes(tr[0], nch, s, tr[1] != 0, pair, f32);
       if (bytes <= static_cast<size_t>(optin)) {
         cfg.ncw = tr[0];
         cfg.qstream = tr[1] != 0;
@@ -601,40 +726,139 @@ Config pick_config(int nch, int ncw_hi, bool pair) {
   return cfg;
 }
 
-template <int KMAX, int NCW, bool QS>
-int launch(const void* q, const void* t, float* od, int* oi, int batch,
-           int n, int m, int d, int k, const Config& cfg,
-           cudaStream_t stream) {
+// The operands of a launch: bf16 rows q (B * N, d) and t (B * M, d), or
+// split f32 rows, planes (2, B * N, d) and (2, B * M, d), with their
+// squared norms nq (B * N) and nt (B * M).
+struct Operands {
+  const void* q;
+  const void* t;
+  const float* nq;
+  const float* nt;
+};
+
+template <int KMAX, int NCW, bool QS, bool F32>
+int launch(const Operands& op, float* od, int* oi, int batch, int n, int m,
+           int d, int k, const Config& cfg, cudaStream_t stream) {
   CUtensorMap tq, tt;
-  const uint64_t row = static_cast<uint64_t>(d) * 2;
-  if (!tmap_bf16_2d(&tq, q, d, static_cast<uint64_t>(batch) * n, row, KC,
-                    NCW * WGQ) ||
-      !tmap_bf16_2d(&tt, t, d, static_cast<uint64_t>(batch) * m, row, KC,
-                    tile_rows(KMAX == 2)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t rq = static_cast<uint64_t>(batch) * n;
+  const uint64_t rt = static_cast<uint64_t>(batch) * m;
+  const uint32_t tbn = tile_rows(KMAX == 2);
+  bool ok;
+  if constexpr (F32) {
+    const uint64_t row = static_cast<uint64_t>(d) * 4;
+    ok = tmap_f32_planes(&tq, op.q, d, rq, 2, row, rq * row, NCW * WGQ) &&
+         tmap_f32_planes(&tt, op.t, d, rt, 2, row, rt * row, tbn);
+  } else {
+    const uint64_t row = static_cast<uint64_t>(d) * 2;
+    ok = tmap_bf16_2d(&tq, op.q, d, rq, row, KC, NCW * WGQ) &&
+         tmap_bf16_2d(&tt, op.t, d, rt, row, KC, tbn);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e =
-      cudaFuncSetAttribute(knnk_wgmma<KMAX, NCW, QS>,
+      cudaFuncSetAttribute(knnk_wgmma<KMAX, NCW, QS, F32>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            cfg.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((n + NCW * WGQ - 1) / (NCW * WGQ), batch);
-  knnk_wgmma<KMAX, NCW, QS><<<grid, 128 * (NCW + 1), cfg.smem, stream>>>(
-      tq, tt, od, oi, n, m, (d + KC - 1) / KC, k, cfg.stages);
+  constexpr int KCH = k_chunk(F32);
+  knnk_wgmma<KMAX, NCW, QS, F32>
+      <<<grid, 128 * (NCW + 1), cfg.smem, stream>>>(
+          tq, tt, op.nq, op.nt, od, oi, n, m, (d + KCH - 1) / KCH, k,
+          cfg.stages);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KMAX>
-int launch_k(const void* q, const void* t, float* od, int* oi, int batch,
-             int n, int m, int d, int k, const Config& cfg,
-             cudaStream_t stream) {
-  constexpr int W = wide_ncw<KMAX>();
-  if (cfg.ncw == W)
-    return launch<KMAX, W, false>(q, t, od, oi, batch, n, m, d, k, cfg,
-                                  stream);
+template <int KMAX, bool F32>
+int launch_k(const Operands& op, float* od, int* oi, int batch, int n,
+             int m, int d, int k, const Config& cfg, cudaStream_t stream) {
+  if constexpr (!F32) {
+    constexpr int W = wide_ncw<KMAX>();
+    if (cfg.ncw == W)
+      return launch<KMAX, W, false, F32>(op, od, oi, batch, n, m, d, k, cfg,
+                                         stream);
+  }
   if (!cfg.qstream)
-    return launch<KMAX, 1, false>(q, t, od, oi, batch, n, m, d, k, cfg,
-                                  stream);
-  return launch<KMAX, 1, true>(q, t, od, oi, batch, n, m, d, k, cfg, stream);
+    return launch<KMAX, 1, false, F32>(op, od, oi, batch, n, m, d, k, cfg,
+                                       stream);
+  return launch<KMAX, 1, true, F32>(op, od, oi, batch, n, m, d, k, cfg,
+                                    stream);
+}
+
+// The configuration for (B, N, M, d, k) and the launch of its instance;
+// d is the row width of the operands (bf16: a multiple of 8, f32: of 4).
+template <bool F32>
+int launch_all(const Operands& op, void* od, void* oi, int batch, int n,
+               int m, int d, int k, cudaStream_t s) {
+  // f32: one consumer warpgroup (its chunk sums double the accumulators)
+  int ncw_hi = F32 ? 1 : k <= 12 ? 3 : 2, dev = 0, sms = 0;
+  if (!F32 && k <= 2 && cudaGetDevice(&dev) == cudaSuccess &&
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+          cudaSuccess &&
+      static_cast<long long>((n + 3 * WGQ - 1) / (3 * WGQ)) * batch < sms)
+    ncw_hi = 1;  // pair selection on a small N: 64 queries a CTA
+  constexpr int KCH = k_chunk(F32);
+  const Config cfg = pick_config((d + KCH - 1) / KCH, ncw_hi, k <= 2, F32);
+  if (cfg.ncw == 0) return static_cast<int>(cudaErrorInvalidValue);
+  float* odf = static_cast<float*>(od);
+  int* oii = static_cast<int*>(oi);
+#define KNN_ARGS op, odf, oii, batch, n, m, d, k, cfg, s
+  if (k <= 2) return launch_k<2, F32>(KNN_ARGS);
+  if (k <= 4) return launch_k<4, F32>(KNN_ARGS);
+  if (k <= 8) return launch_k<8, F32>(KNN_ARGS);
+  if (k <= 10) return launch_k<10, F32>(KNN_ARGS);
+  if (k <= 12) return launch_k<12, F32>(KNN_ARGS);
+  return launch_k<16, F32>(KNN_ARGS);
+#undef KNN_ARGS
+}
+
+// one element of the split: hi and lo into the planes, x * x into the sum
+__device__ __forceinline__ void split1(float x, float* hi, float* lo,
+                                       double& s) {
+  const float h = tf32_rna(x);
+  *hi = h;
+  *lo = isfinite(x) ? tf32_rna(x - h) : 0.f;
+  s = fma(static_cast<double>(x), static_cast<double>(x), s);
+}
+
+// The f32 modes' pre-pass, one launch for both operands: row r of x
+// (rows, d) f32 becomes hi = tf32_rna(x) and lo = tf32_rna(x - hi) in the
+// planes (2, rows, dp), zeros past d, and its squared norm from the
+// unsplit x, summed in f64 (each lane's elements in order, then the lanes
+// in a fixed tree) and rounded once to f32. One warp a row, q's rows
+// first, then t's. VEC: d == dp, rows of whole 16-byte units, copied 16
+// bytes a lane.
+template <bool VEC>
+__global__ void __launch_bounds__(256)
+split_tf32(const float* __restrict__ q, const float* __restrict__ t,
+           float* __restrict__ sq, float* __restrict__ st,
+           float* __restrict__ nrm, int rq, int rt, int d, int dp) {
+  const int w = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (w >= rq + rt) return;
+  const bool isq = w < rq;
+  const size_t r = isq ? w : w - rq, rows = isq ? rq : rt;
+  const float* x = (isq ? q : t) + r * d;
+  float* hi = (isq ? sq : st) + r * dp;
+  float* lo = hi + rows * dp;
+  double s = 0.0;
+  if constexpr (VEC) {
+    for (int e = 4 * lane; e < d; e += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(x + e);
+      float4 h, l;
+      split1(v.x, &h.x, &l.x, s);
+      split1(v.y, &h.y, &l.y, s);
+      split1(v.z, &h.z, &l.z, s);
+      split1(v.w, &h.w, &l.w, s);
+      *reinterpret_cast<float4*>(hi + e) = h;
+      *reinterpret_cast<float4*>(lo + e) = l;
+    }
+  } else {
+    for (int e = lane; e < dp; e += 32)
+      split1(e < d ? x[e] : 0.f, hi + e, lo + e, s);
+  }
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) nrm[w] = static_cast<float>(s);
 }
 
 }  // namespace
@@ -651,29 +875,62 @@ extern "C" int knn_topk_launch(const void* q, const void* t, void* od,
       reinterpret_cast<uintptr_t>(q) % 16 ||
       reinterpret_cast<uintptr_t>(t) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  int ncw_hi = k <= 12 ? 3 : 2, dev = 0, sms = 0;
-  if (k <= 2 && cudaGetDevice(&dev) == cudaSuccess &&
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
-          cudaSuccess &&
-      static_cast<long long>((n + 3 * WGQ - 1) / (3 * WGQ)) * batch < sms)
-    ncw_hi = 1;  // pair selection on a small N: 64 queries a CTA
-  const Config cfg = pick_config((d + KC - 1) / KC, ncw_hi, k <= 2);
-  if (cfg.ncw == 0) return static_cast<int>(cudaErrorInvalidValue);
-  float* odf = static_cast<float*>(od);
-  int* oii = static_cast<int*>(oi);
+  const Operands op{q, t, nullptr, nullptr};
+  return launch_all<false>(op, od, oi, batch, n, m, d, k,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of the scratch knn_topk_f32_launch takes for (B, N, M, D): the
+// split planes of q and t and their squared norms.
+extern "C" long long knn_topk_f32_scratch_bytes(int batch, int n, int m,
+                                                int d) {
+  const long long rows = static_cast<long long>(batch) * (n + m);
+  return rows * (2LL * split_width(d) + 1) * 4;
+}
+
+// The f32 modes (HIGHEST parity): q (B * N, D) and t (B * M, D) f32, rows
+// contiguous and packed, 4-byte aligned, any D >= 1; scratch of
+// knn_topk_f32_scratch_bytes, 16-byte aligned; od and oi as above. Two
+// launches: the split (split_tf32), then the kernel on the split rows.
+// Returns a CUDA error code (0 on success); cudaErrorInvalidValue for
+// arguments outside these limits.
+extern "C" int knn_topk_f32_launch(const void* q, const void* t,
+                                   void* scratch, void* od, void* oi,
+                                   int batch, int n, int m, int d, int k,
+                                   void* stream) {
+  const long long rq = static_cast<long long>(batch) * n;
+  const long long rt = static_cast<long long>(batch) * m;
+  if (k < 1 || k > 16 || n < 1 || m < 1 || batch < 1 || d < 1 ||
+      rq + rt > 0x7fffffffLL || reinterpret_cast<uintptr_t>(q) % 4 ||
+      reinterpret_cast<uintptr_t>(t) % 4 ||
+      reinterpret_cast<uintptr_t>(scratch) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int dp = split_width(d);
+  float* sq = static_cast<float*>(scratch);
+  float* st = sq + 2 * rq * dp;
+  float* nrm = st + 2 * rt * dp;
+  const float* qf = static_cast<const float*>(q);
+  const float* tf = static_cast<const float*>(t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 2) return launch_k<2>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
-  if (k <= 4) return launch_k<4>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
-  if (k <= 8) return launch_k<8>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
-  if (k <= 10)
-    return launch_k<10>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
-  if (k <= 12)
-    return launch_k<12>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
-  return launch_k<16>(q, t, odf, oii, batch, n, m, d, k, cfg, s);
+  const unsigned blocks = static_cast<unsigned>((rq + rt + 7) / 8);
+  if (d == dp && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(t) % 16 == 0)
+    split_tf32<true><<<blocks, 256, 0, s>>>(qf, tf, sq, st, nrm, rq, rt, d,
+                                           dp);
+  else
+    split_tf32<false><<<blocks, 256, 0, s>>>(qf, tf, sq, st, nrm, rq, rt, d,
+                                            dp);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Operands op{sq, st, nrm, nrm + rq};
+  return launch_all<true>(op, od, oi, batch, n, m, dp, k, s);
 }
 
 // Dynamic shared memory a CTA requests at width d: k in 3..12 (``which``
-// 0) or the pair selection, k <= 2 (``which`` 1).
+// 0, f32 2) or the pair selection, k <= 2 (``which`` 1, f32 3).
 extern "C" int knn_topk_smem_bytes(int d, int which) {
-  return pick_config((d + KC - 1) / KC, 3, which == 1).smem;
+  const bool f32 = which >= 2;
+  const int kc = k_chunk(f32), w = f32 ? split_width(d) : d;
+  return pick_config((w + kc - 1) / kc, f32 ? 1 : 3, (which & 1) != 0, f32)
+      .smem;
 }

@@ -31,8 +31,7 @@ SOURCES = {
     "rda_wide": "rda_wide.cu",        # kernel B
     "rda_narrow": "rda_narrow.cu",    # kernels C and D
     "hinge": "hinge.cu",              # kernel E
-    "knn": "knn.cu",                  # kernels F and H in f32
-    "knn_topk": "knn_topk.cu",        # kernels F and H in bf16 (wgmma)
+    "knn_topk": "knn_topk.cu",        # kernels F and H (wgmma)
     "knn_batched": "knn_batched.cu",  # kernel G
 }
 
@@ -42,22 +41,24 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-#: C entry point of each library: (symbol, argtypes)
+#: C entry points of each library: {symbol: (argtypes, restype)}
 SIGNATURES = {
-    "ring_dist": ("ring_dist_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "rda_wide": ("rda_wide_train",
-                 [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "rda_narrow": ("rda_narrow_run",
-                   [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _P]),
-    "hinge": ("hinge_launch", [_P, _P, _P, _I, _I, _P]),
-    "knn": ("knn_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _L, _L, _L, _L, _P]),
-    "knn_topk": ("knn_topk_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _P]),
-    "knn_batched": ("knn2_batched_launch", [_P, _P, _P, _I, _I, _I, _I, _L,
-                                            _L, _L, _L, _P]),
+    "ring_dist": {"ring_dist_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P],
+                                       _I)},
+    "rda_wide": {"rda_wide_train": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _P], _I)},
+    "rda_narrow": {"rda_narrow_run": ([_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                                      _I)},
+    "hinge": {"hinge_launch": ([_P, _P, _P, _I, _I, _P], _I)},
+    "knn_topk": {
+        "knn_topk_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "knn_topk_f32_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _P], _I),
+        "knn_topk_f32_scratch_bytes": ([_I, _I, _I, _I], _L)},
+    "knn_batched": {"knn2_batched_launch": ([_P, _P, _P, _I, _I, _I, _I, _L,
+                                             _L, _L, _L, _P], _I)},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -126,10 +127,10 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         path = build_all([name])[name]
         lib = ctypes.CDLL(path)
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, (argtypes, restype) in SIGNATURES[name].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = restype
         _loaded[name] = lib
     return lib
 

@@ -4,23 +4,25 @@ in one pass.
 Port of ``opencv_dlco_tpu/ops/knn_pallas.py``:
 
 - ``knn2_fused``: kernel F, the 2 nearest train rows of every query
-  (bf16: ``csrc/knn_topk.cu``'s pair selection; f32: ``csrc/knn.cu``);
+  (``csrc/knn_topk.cu``'s pair selection);
 - ``knn2_fused_batched``: kernel G, the 2-NN over a leading batch axis (the
   SLAM pose chunk's C matching problems, one launch;
   ``csrc/knn_batched.cu``);
-- ``knnk_fused``: kernel H, the k nearest for 1 <= k <= 16 (bf16:
-  ``csrc/knn_topk.cu``, wgmma products and a pruned selection; f32:
-  ``csrc/knn.cu``).
+- ``knnk_fused``: kernel H, the k nearest for 1 <= k <= 16
+  (``csrc/knn_topk.cu``, wgmma products and a pruned selection).
 
 All compute ||q||^2 + ||t||^2 - 2 q.t clamped at 0 and return (dists
 (N, k) f32 ascending, idx (N, k) int32), equal distances ordered by the
 lower train index, (inf, -1) where a query has fewer than k neighbours.
 ``bf16=True`` rounds q and t to bf16 before the norms and the products
-(the TPU kernels' fast mode); ``bf16=False`` is true f32, TF32 off.
+(the TPU kernels' fast mode); ``bf16=False`` is f32 parity (HIGHEST): on
+the card each product is three tf32 wgmma products of the operands'
+split hi + lo parts (the TPU's multi-pass bf16 HIGHEST product in Hopper's
+terms), the plain version one f32 matmul with TF32 off.
 The launchers take the leading batch axis, as the TPU's ``_fused_call``
-does. F and H (bf16) and G are one kernel launch a call, the norms
-computed inside (f32 inputs to the bf16 mode are cast first);
-``csrc/knn.cu`` (f32) runs two norm passes before its main kernel.
+does. F and H in bf16 and G are one kernel launch a call, the norms
+computed inside (f32 inputs to the bf16 mode are cast first); F and H in
+f32 are two: the split of q and t with their norms, then the kernel.
 
 On a CPU tensor each wrapper runs ``knn_plain``, the same function in
 plain PyTorch; on a CUDA tensor it launches the kernel or raises.
@@ -102,13 +104,12 @@ def knn_plain(query: torch.Tensor, train: torch.Tensor, k: int, *,
 _FNS: Dict[str, object] = {}
 
 
-def _entry(name: str):
-    """The launch entry point of library ``name``, loaded (built first if
+def _entry(lib: str, symbol: str):
+    """C entry point ``symbol`` of library ``lib``, loaded (built first if
     needed) and looked up once."""
-    fn = _FNS.get(name)
+    fn = _FNS.get(symbol)
     if fn is None:
-        fn = _FNS[name] = getattr(cuda_build.load(name),
-                                  cuda_build.SIGNATURES[name][0])
+        fn = _FNS[symbol] = getattr(cuda_build.load(lib), symbol)
     return fn
 
 
@@ -167,52 +168,39 @@ def _empty_result(b: int, n: int, k: int, dev) -> Tuple[torch.Tensor,
 def _fused_call(query: torch.Tensor, train: torch.Tensor, k: int, *,
                 bf16: bool, wrapper):
     """Kernels F and H: (B, N, D) x (B, M, D) -> ((B, N, k), (B, N, k)).
-    CPU tensors: ``knn_plain``; bf16 on the card: ``csrc/knn_topk.cu``;
-    f32 on the card: ``csrc/knn.cu``. Counts a launch on
-    ``wrapper.launches``."""
+    CPU tensors: ``knn_plain``; CUDA tensors: ``csrc/knn_topk.cu`` (k <= 2
+    takes the pair selection), bf16 in one launch with the norms inside,
+    f32 as the split of q and t with their norms, then the kernel. Counts
+    a launch on ``wrapper.launches``."""
     what = wrapper.__name__
     _check_args(query, train, k, what)
     if query.device.type == "cpu":
         return knn_plain(query, train, k, bf16=bf16)
-    if bf16:
-        return _topk_call(query, train, k, wrapper)
-    dev = query.device
-    b, n, d = query.shape
-    q = query.to(torch.float32).contiguous()
-    t = train.to(torch.float32).contiguous()
-    q = q.clone() if q.data_ptr() % 16 else q
-    t = t.clone() if t.data_ptr() % 16 else t
-    m = t.shape[1]
-    od = torch.empty((b, n, k), dtype=torch.float32, device=dev)
-    oi = torch.empty((b, n, k), dtype=torch.int32, device=dev)
-    if n == 0:
-        return od, oi
-    qn = torch.empty((b, n), dtype=torch.float32, device=dev)
-    tn = torch.empty((b, m), dtype=torch.float32, device=dev)
-    rc = _run(dev, _entry("knn"), q.data_ptr(), t.data_ptr(), qn.data_ptr(),
-              tn.data_ptr(), od.data_ptr(), oi.data_ptr(), b, n, m, d, k,
-              q.stride(0), q.stride(1), t.stride(0), t.stride(1))
-    cuda_build.check(rc, what)
-    wrapper.launches += 1
-    return od, oi
-
-
-def _topk_call(query: torch.Tensor, train: torch.Tensor, k: int, wrapper):
-    """Launcher of ``csrc/knn_topk.cu`` (kernels F and H on Hopper, bf16;
-    k <= 2 takes the pair selection): one launch, norms inside. Counts a
-    launch on ``wrapper.launches``."""
     dev = query.device
     b, n, d = query.shape
     m = train.shape[1]
-    pad = (-d) % 8      # rows of whole 16-byte units (the tensor maps' stride)
-    q, t = _bf16_rows(query, pad), _bf16_rows(train, pad)
+    if bf16:
+        pad = (-d) % 8  # rows of whole 16-byte units (the tensor maps' stride)
+        q, t = _bf16_rows(query, pad), _bf16_rows(train, pad)
+    else:
+        q = query.to(torch.float32).contiguous()
+        t = train.to(torch.float32).contiguous()
     if b == 0 or n == 0 or m == 0:
         return _empty_result(b, n, k, dev)
     od = torch.empty((b, n, k), dtype=torch.float32, device=dev)
     oi = torch.empty((b, n, k), dtype=torch.int32, device=dev)
-    rc = _run(dev, _entry("knn_topk"), q.data_ptr(), t.data_ptr(),
-              od.data_ptr(), oi.data_ptr(), b, n, m, d + pad, k)
-    cuda_build.check(rc, wrapper.__name__)
+    if bf16:
+        rc = _run(dev, _entry("knn_topk", "knn_topk_launch"), q.data_ptr(),
+                  t.data_ptr(), od.data_ptr(), oi.data_ptr(), b, n, m,
+                  d + pad, k)
+    else:
+        nbytes = _entry("knn_topk", "knn_topk_f32_scratch_bytes")(b, n, m, d)
+        scratch = torch.empty((nbytes + 3) // 4, dtype=torch.float32,
+                              device=dev)
+        rc = _run(dev, _entry("knn_topk", "knn_topk_f32_launch"),
+                  q.data_ptr(), t.data_ptr(), scratch.data_ptr(),
+                  od.data_ptr(), oi.data_ptr(), b, n, m, d, k)
+    cuda_build.check(rc, what)
     wrapper.launches += 1
     return od, oi
 
@@ -251,9 +239,9 @@ def knn2_fused_batched(query: torch.Tensor, train: torch.Tensor, *,
     if b == 0 or n == 0 or m == 0:
         return _empty_result(b, n, 2, dev)
     dists, idx = torch.empty((2, b, n, 2), device=dev).unbind(0)
-    rc = _run(dev, _entry("knn_batched"), q.data_ptr(), t.data_ptr(),
-              dists.data_ptr(), b, n, m, d, q.stride(0), q.stride(1),
-              t.stride(0), t.stride(1))
+    rc = _run(dev, _entry("knn_batched", "knn2_batched_launch"),
+              q.data_ptr(), t.data_ptr(), dists.data_ptr(), b, n, m, d,
+              q.stride(0), q.stride(1), t.stride(0), t.stride(1))
     cuda_build.check(rc, "knn2_fused_batched")
     knn2_fused_batched.launches += 1
     return dists, idx.view(torch.int32)
@@ -262,8 +250,8 @@ def knn2_fused_batched(query: torch.Tensor, train: torch.Tensor, *,
 def knnk_fused(query: torch.Tensor, train: torch.Tensor, k: int, *,
                bf16: bool = True):
     """Top-k (1 <= k <= 16) per query (kernel H): (dists (N, k) ascending,
-    idx (N, k) int32). bf16 on a CUDA tensor runs ``csrc/knn_topk.cu`` at
-    every width; f32 runs ``csrc/knn.cu``."""
+    idx (N, k) int32). On a CUDA tensor: ``csrc/knn_topk.cu`` at every
+    width, in either mode."""
     od, oi = _fused_call(query[None], train[None], k, bf16=bf16,
                          wrapper=knnk_fused)
     return od[0], oi[0]

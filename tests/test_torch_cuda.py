@@ -564,3 +564,102 @@ def test_kernels_c_and_f_rerun_bit_identical(dev):
     b = knn_fused.knn2_fused(q, t)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _hold_f32_route(q, t, k, got):
+    """Kernel F's or H's f32 mode (q (B, N, D), t (B, M, D)) against the
+    f32 plain version: distances within rtol/atol 1e-5; indices identical
+    except at near-ties (two summation orders of one f32 distance), where
+    the kernel's pick lies at the plain list's distance within 1e-5
+    (relative plus absolute, in f64), at most one entry in a thousand; no
+    row repeats an index. Returns the number of near-tie swaps."""
+    dk, ik = got
+    dp, ip = knn_fused.knn_plain(q, t, k, bf16=False)
+    torch.cuda.synchronize()
+    assert dk.shape == ik.shape == dp.shape
+    np.testing.assert_allclose(dk.cpu().numpy(), dp.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    b, r, s = (ik != ip).nonzero(as_tuple=True)
+    pick = ik[b, r, s].long()
+    assert bool((pick >= 0).all())
+    d_pick = ((q[b, r].double() - t[b, pick].double()) ** 2).sum(-1)
+    ref = dp[b, r, s].double()
+    assert bool(((d_pick - ref).abs() <= 1e-5 * (1.0 + ref.abs())).all())
+    assert b.numel() <= 1e-3 * ik.numel()
+    srt = ik.sort(dim=-1).values
+    assert not bool(((srt[..., 1:] == srt[..., :-1])
+                     & (srt[..., 1:] >= 0)).any())
+    return b.numel()
+
+
+@pytest.mark.parametrize("k", [2, 10])
+def test_kernels_f_and_h_f32_at_d576(dev, k):
+    """The f32 mode at d 576 (queries streamed through the stages, 18
+    K chunks of 32), M off both tile sizes: one launch a call through the
+    public wrappers, held to the f32 plain version."""
+    q, t = _clustered(dev, 2048, 4099, 576, seed=576 + k, scale=576 ** -0.5)
+    wrapper = knn_fused.knn2_fused if k == 2 else knn_fused.knnk_fused
+    before = wrapper.launches
+    got = knn_fused.knn2_fused(q, t, bf16=False) if k == 2 else \
+        knn_fused.knnk_fused(q, t, k, bf16=False)
+    assert wrapper.launches == before + 1
+    _hold_f32_route(q[None], t[None], k, (got[0][None], got[1][None]))
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 10])
+@pytest.mark.parametrize("b,n,m,d", [(3, 200, 333, 64), (16, 256, 256, 48),
+                                     (2, 77, 1000, 300)])
+def test_kernels_f_and_h_f32_batched(dev, k, b, n, m, d):
+    """A leading batch axis (the launchers' B > 1: the SLAM pose chunk's
+    16 x 256 x 256 at d 48 among them) against the batched plain
+    version; d 300 streams the queries."""
+    g = torch.Generator(device=dev).manual_seed(b * n + d + k)
+    q = torch.randn((b, n, d), generator=g, device=dev) * d ** -0.5
+    t = torch.randn((b, m, d), generator=g, device=dev) * d ** -0.5
+    t[:, :n // 2] = q[:, :n // 2] + 0.05 * d ** -0.5 * torch.randn(
+        (b, n // 2, d), generator=g, device=dev)
+    wrapper = knn_fused.knn2_fused if k <= 2 else knn_fused.knnk_fused
+    before = wrapper.launches
+    got = knn_fused._fused_call(q, t, k, bf16=False, wrapper=wrapper)
+    assert wrapper.launches == before + 1
+    _hold_f32_route(q, t, k, got)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 10, 16])
+@pytest.mark.parametrize("d", [48, 64, 576])
+def test_kernels_f_and_h_f32_ragged_with_ties(dev, k, d):
+    """The f32 mode with M off the 64- and 128-row tiles and train rows
+    repeated across tiles (rows m/2 .. m/2 + 199 copy rows 0 .. 199): equal
+    distances come out in ascending train index, every query's copied
+    centre is found at both of its columns, and the lists hold to the
+    f32 plain version."""
+    n, m = 3001, 4999
+    q, t = _clustered(dev, n, m, d, seed=k + d, scale=d ** -0.5)
+    t[m // 2:m // 2 + 200] = t[:200]
+    q, t = q.contiguous(), t.contiguous()
+    dk, ik = knn_fused.knn2_fused(q, t, bf16=False) if k == 2 else \
+        knn_fused.knnk_fused(q, t, k, bf16=False)
+    _hold_f32_route(q[None], t[None], k, (dk[None], ik[None]))
+    if k >= 2:
+        tie = dk[:, 1:] == dk[:, :-1]
+        assert bool((ik[:, 1:] > ik[:, :-1])[tie].all())
+        assert bool((dk[:, 1:] >= dk[:, :-1]).all())
+        dup = ik[:, 0] < 200          # nearest is a copied row
+        assert bool(dup.any())
+        assert bool((ik[dup, 1] == ik[dup, 0] + m // 2).all())
+        assert bool((dk[dup, 1] == dk[dup, 0]).all())
+
+
+def test_kernels_f_and_h_f32_rerun_bit_identical(dev):
+    """The split and the products run in a fixed order: a second call
+    with the same inputs gives the same bits (resident and streamed
+    queries)."""
+    for d in (64, 576):
+        q, t = _clustered(dev, 4096, 8192, d, seed=d, scale=d ** -0.5)
+        for k in (2, 10):
+            fn = (lambda a, b: knn_fused.knn2_fused(a, b, bf16=False)) \
+                if k == 2 else \
+                (lambda a, b: knn_fused.knnk_fused(a, b, k, bf16=False))
+            a, b = fn(q, t), fn(q, t)
+            torch.cuda.synchronize()
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

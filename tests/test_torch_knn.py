@@ -8,6 +8,10 @@ absolute: ||q||^2 + ||t||^2 is ~128 for these descriptors, so one f32 ulp
 of that sum is 1.5e-5 and the two packages' matmuls round in different
 orders. bf16 mode is held by match identity (>= 0.99 of ratio-test matches
 and top-1 neighbours), the consumer contract of tests/test_knn_pallas.py.
+The emulation of the card's f32 mode (a 3xTF32 split product) is held by
+the f32 parity rule its test states: indices identical except verified
+near-ties, distances within 1e-5 relative plus an absolute part that
+scales with ||q||^2 + ||t||^2 for descriptors with large norms.
 """
 
 import numpy as np
@@ -562,3 +566,141 @@ def test_f_selection_emulation_fewer_than_two_train_rows():
     assert np.all(np.isinf(d[:, 1].numpy()))
     np.testing.assert_allclose(d[:, 0].numpy(), np.asarray(d_j)[:, 0],
                                **DIST)
+
+
+# -- the f32 mode on the card: a 3xTF32 split product ------------------------
+# csrc/knn_topk.cu's f32 mode splits every element x into hi = rna_tf32(x)
+# and lo = rna_tf32(x - hi) and forms q.t as hi_q.hi_t + (lo_q.hi_t +
+# hi_q.lo_t), the norms summed in f64 from the unsplit x and rounded once.
+# The emulation below repeats that arithmetic in plain PyTorch (products
+# in f32, without the tensor cores' truncating accumulation) and feeds its
+# raw distances to the selection emulations, held against the JAX kernels
+# in f32.
+
+
+def tf32_rna(x):
+    """x (f32) rounded to tf32 (10 mantissa bits), to nearest with ties away
+    from zero, by bit operations on its int32 view: the value
+    cvt.rna.tf32.f32 gives (inf and nan pass through)."""
+    x = x.to(torch.float32).contiguous()
+    u = x.view(torch.int32)
+    r = ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def split_tf32(x):
+    """(hi, lo) of the kernel's pre-pass."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def _raw_dists_split(q, t):
+    """Unclamped (|q|^2 + |t|^2) - 2 q.t with q.t as the kernel forms it
+    from the split operands (hi.hi, plus the small products summed apart);
+    norms from the unsplit rows, summed in f64 and rounded to f32."""
+    q, t = q.to(torch.float32), t.to(torch.float32)
+    (qh, ql), (th, tl) = split_tf32(q), split_tf32(t)
+    g = qh @ th.T + (ql @ th.T + qh @ tl.T)
+    nq = (q.double() ** 2).sum(-1).float()
+    nt = (t.double() ** 2).sum(-1).float()
+    return (nq[:, None] + nt[None, :]) - 2.0 * g
+
+
+def test_tf32_rna_rounding():
+    """Ties go away from zero on both signs, values below half a tf32 ulp
+    round down, zero keeps its sign, and hi + lo gives x back within 2^-22
+    of |x|."""
+    one, half, eps = 1.0, 2.0 ** -11, 2.0 ** -23
+    x = torch.tensor([one + half, -(one + half), one + half - eps,
+                      -(one + half - eps), one + 3 * half, 0.0, -0.0,
+                      float("inf"), 1.5 * 2.0 ** -130], dtype=torch.float32)
+    r = tf32_rna(x)
+    want = [one + 2 * half, -(one + 2 * half), one, -one, one + 4 * half,
+            0.0, -0.0, float("inf"), 1.5 * 2.0 ** -130]
+    np.testing.assert_array_equal(r.numpy(),
+                                  np.array(want, dtype=np.float32))
+    assert np.signbit(r[6].numpy()) and not np.signbit(r[5].numpy())
+    assert bool(torch.isnan(tf32_rna(torch.tensor([float("nan")]))).all())
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy((rng.standard_normal(100_000)
+                          * 10.0 ** rng.uniform(-6, 6, 100_000))
+                         .astype(np.float32))
+    hi, lo = split_tf32(v)
+    for part in (hi, lo):             # tf32 values: the low 13 bits are 0
+        assert bool(((part.view(torch.int32) & 0x1FFF) == 0).all())
+    err = (hi.double() + lo.double() - v.double()).abs()
+    assert bool((err <= 2.0 ** -22 * v.double().abs()).all())
+    assert bool(((v - hi).abs() <= 2.0 ** -11 * v.abs()).all())
+
+
+def _split_case(n, m, d, scale, seed):
+    """Realistic-margin clusters (the module's descriptors at another size)
+    with row norms near ``scale``."""
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(m, d)).astype(np.float32)
+    q = centres[:n] + 0.05 * rng.normal(size=(n, d)).astype(np.float32)
+    t = centres[rng.permutation(m)]
+    f = np.float32(scale / np.sqrt(d))
+    return (q * f).astype(np.float32), (t * f).astype(np.float32)
+
+
+def _hold_near_ties(q, t, d, i, d_ref, i_ref, atol_of_mag):
+    """f32 parity rule: distances within 1e-5 relative plus an absolute
+    part (1e-5, or 1e-5 x (|q|^2 + |t|^2) with ``atol_of_mag``) of the
+    reference at the reference's index; indices identical except at
+    near-ties, where the pick's distance (f64) is the reference's within
+    the same tolerance, and no row repeats an index. Returns the number of
+    near-tie swaps."""
+    q64, t64 = torch.from_numpy(q).double(), torch.from_numpy(t).double()
+    d_ref = torch.from_numpy(np.array(d_ref)).double()
+    i_ref = torch.from_numpy(np.array(i_ref)).long()
+    atol = 1e-5 * ((q64 * q64).sum(1)[:, None]
+                   + (t64 * t64).sum(1)[i_ref.clamp(min=0)]) \
+        if atol_of_mag else 1e-5
+    tol = 1e-5 * d_ref.abs() + atol
+    assert bool(((d.double() - d_ref).abs() <= tol).all())
+    r, s = (i.long() != i_ref).nonzero(as_tuple=True)
+    pick = i[r, s].long()
+    d_pick = ((q64[r] - t64[pick]) ** 2).sum(1)
+    assert bool(((d_pick - d_ref[r, s]).abs() <= tol[r, s]).all())
+    srt = i.sort(dim=1).values
+    assert not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any())
+    return r.numel()
+
+
+@pytest.fixture(scope="module")
+def split_cases():
+    """The JAX kernels (interpret mode, f32) on unit-scale descriptors and
+    on descriptors with norms near 1e2, at d 64 and d 576."""
+    out = {}
+    for d in (64, 576):
+        for scale in (1.0, 100.0):
+            q, t = _split_case(160, 448, d, scale, seed=d + int(scale))
+            jq, jt = jnp.asarray(q), jnp.asarray(t)
+            out[d, scale] = (q, t, {
+                2: jax_kp.knn2_fused(jq, jt, interpret=True, bf16=False),
+                10: jax_kp.knnk_fused(jq, jt, 10, interpret=True,
+                                      bf16=False)})
+    return out
+
+
+@pytest.mark.parametrize("scale", [1.0, 100.0])
+@pytest.mark.parametrize("d", [64, 576])
+@pytest.mark.parametrize("k", [2, 10])
+def test_split_product_selection_matches_pallas_f32(split_cases, k, d,
+                                                    scale):
+    """The f32 mode's arithmetic (the split product, then F's pair selection
+    at k 2 and H's queued selection at k 10) against the JAX kernels in
+    f32: distances within 1e-5 relative plus 1e-5 absolute at unit scale,
+    plus 1e-5 x (|q|^2 + |t|^2) at norms near 1e2 (the magnitude the
+    expanded form cancels, whose f32 rounding any two orders differ by);
+    indices identical except verified near-ties (at most 2 here).
+    knn_plain(bf16=False) meets the same rule against the same
+    references."""
+    q, t, ref = split_cases[d, scale]
+    d_j, i_j = ref[k]
+    emulate = emulate_f_selection if k == 2 else emulate_h_selection
+    dist, idx, _, _ = emulate(_raw_dists_split(_t(q), _t(t)), k)
+    assert _hold_near_ties(q, t, dist, idx, d_j, i_j, scale != 1.0) <= 2
+    d_p, i_p = knn_plain(_t(q), _t(t), k, bf16=False)
+    _hold_near_ties(q, t, d_p, i_p, d_j, i_j, scale != 1.0)
