@@ -31,7 +31,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    64-D header stage 11 just exported, through compute_features ->
    run_odometry -> run_back_end (bench_slam's calls), once counted (after
    a timed first forward-mode Jacobian, PyTorch's one-time set-up) and,
-   after phase 6, once more for steady-state seconds and once under
+   after phase 7, once more for steady-state seconds and once under
    torch.profiler for the device's busy time and kernel launches, with
    each run's ATE/span and a hash of each of its G outputs. Counts are set
    to 0 just before and read just after the counted run; the run fails if
@@ -40,17 +40,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
    counted, steady and profiled runs (the back end's sums have a fixed
    order), or if a repeat of any pose chunk's G call on its own recorded
    inputs (masked rows included) disagrees with G's plain version.
-5. Checks the outputs: distance matrix shape, finiteness and separation,
+5. Drives the port's bench through its entry point,
+   ``bench.run(suite="hinge")`` (kernel E against the sorted form at
+   P = N = 50,000, 8 calls of each), writing its details file into the
+   smoke's workspace; it prints the bench's JSON headline. Counts are set
+   to 0 just before and read just after; the run fails unless kernel E
+   launched there and the details hold ``kernel_time`` and ``sorted_time``.
+6. Checks the outputs: distance matrix shape, finiteness and separation,
    the first 64 rows against the f32 route, a finite sweep, saved
    histories, a ranked row; finite diffs and PJ models, four exports that
    parse, finite descriptors, fused matching against the scan path, and
    each kNN kernel call of the evaluation against the plain version.
-6. Holds each kernel against its plain PyTorch version on the card at the
+7. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (A at the 256- and 8,192-pair blocks of compdist
    and run_reference_scale and at a small block of 64 pairs, B at 1 and
    48 steps of the PR grid with each of its three kernels' device time a
    step from torch.profiler, C at S 1 and 8 and D with their device time
-   a step and launches a call, E, F, H at the benchmark's shapes, F also
+   a step and launches a call, E at the bench's P = N = 50,000 and at
+   8,192 (totals against the plain version and the sorted form, partials
+   against the plain version, two calls bit for bit, device time and
+   launches a call from torch.profiler, the SM clock under load), F, H at
+   the benchmark's shapes, F also
    on the evaluation's own descriptors in both modes (f32 through
    knn_match(precision="highest")), F and H also at the 120-D export's
    width and at widths past one D chunk, F and H in f32 at d 64 and d 576,
@@ -64,7 +74,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and H's (d 64, bf16 and f32; d 576, f32), the f32 evaluation call's
    and G's (the SLAM chunk) device time and kernel launches per call, and
    their library calls', come from torch.profiler.
-7. Prints one JSON line with every kernel, then the card line, then
+8. Prints one JSON line with every kernel, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line. Any failed phase
    exits non-zero without that line.
 """
@@ -945,45 +955,101 @@ def f32_eval_row(torch, q, t):
         tolerance=tol, max_abs_dev_from_exact=vs_exact, profiler=prof)
 
 
-def kernel_checks_2(torch):
-    """E, F and H against their plain versions on the card, with times,
-    bounds and yardsticks (E: the sorted form, no single library call
-    computes the all-pairs hinge; F, H: the q.t^T product in torch.matmul)."""
-    from opencv_dlco_tpu_torch.ops import hinge
-    from opencv_dlco_tpu_torch.ops.knn_fused import knn2_fused, knnk_fused
+def sm_clock_under(torch, fn):
+    """The SM clock (MHz) nvidia-smi reads while calls of ``fn`` keep the
+    card busy (queued from this thread until the reading is in)."""
+    import threading
 
-    results = {}
+    reading = []
+
+    def query():
+        time.sleep(0.3)
+        reading.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout)
+
+    fn()
+    torch.cuda.synchronize()
+    th = threading.Thread(target=query)
+    th.start()
+    while th.is_alive():
+        fn()
+    torch.cuda.synchronize()
+    return float(reading[0].split()[0])
+
+
+def e_row(torch, n):
+    """Kernel E at P = N = n against its plain version and the sorted
+    form: totals within rel 1e-5 (f32 sums of n^2 terms in three orders),
+    per-positive partials within rel 1e-5 (sums of non-negative terms),
+    and the same bits over two calls (the slices combine in a fixed
+    order)."""
+    from opencv_dlco_tpu_torch.ops import cuda_build, hinge
+
     g = torch.Generator(device="cuda").manual_seed(5)
-    pos = 1.0 + 0.6 * torch.randn(HINGE_N, generator=g, device="cuda")
-    neg = 2.0 + 0.8 * torch.randn(HINGE_N, generator=g, device="cuda")
-    got = float(hinge.hinge_sum_blockwise(pos, neg))
-    ref = float(hinge.hinge_partials_plain(pos, neg).sum())
+    pos = 1.0 + 0.6 * torch.randn(n, generator=g, device="cuda")
+    neg = 2.0 + 0.8 * torch.randn(n, generator=g, device="cuda")
+    got = hinge.hinge_sum_blockwise(pos, neg)
+    again = hinge.hinge_sum_blockwise(pos, neg)
+    part = hinge.hinge_partials(pos, neg)
+    ref_part = hinge.hinge_partials_plain(pos, neg)
+    ref = float(ref_part.sum())
     srt = float(hinge.hinge_sum_sorted(pos, neg))
-    # an f32 sum over 2.5e9 terms in three orders: relative 1e-5 of the total
+    if again.cpu().numpy().tobytes() != got.cpu().numpy().tobytes():
+        raise AssertionError(f"E[{n}]: two calls differ: {float(got)!r} vs "
+                             f"{float(again)!r}")
+    got = float(got)
     for what, r in (("plain", ref), ("sorted", srt)):
         if abs(got - r) > 1e-5 * abs(r):
-            raise AssertionError(f"E vs {what}: {got} vs {r}")
+            raise AssertionError(f"E[{n}] vs {what}: {got} vs {r}")
+    check_close(f"E[{n}] partials", part, ref_part, (1e-5, 0.0))
     # per pair a subtract and an add on the FP32 pipe and a max on the
     # min/max rate (no FMA among them); the slower of the two pipes bounds
-    pairs = HINGE_N * HINGE_N
+    pairs = n * n
     t_ops = max(2 * pairs / F32_INSTR_PER_S, pairs / MINMAX_INSTR_PER_S)
-    t_bytes = 3 * HINGE_N * 4 / HBM_BYTES_PER_S
+    t_bytes = 3 * n * 4 / HBM_BYTES_PER_S
     bnd = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
-    results["E"] = dict(
+
+    def run():
+        return hinge.hinge_sum_blockwise(pos, neg)
+
+    ms = time_ms(torch, run, 20)
+    mhz = sm_clock_under(torch, run) if n == HINGE_N else None
+    # three warp instructions a term, one issued per scheduler per clock
+    issue = 3 * pairs / 32 / (132 * 4)
+    return dict(
         name="hinge_sum_blockwise", route="cuda",
         source="opencv_dlco_tpu_torch/csrc/hinge.cu",
         replaces="opencv_dlco_tpu/ops/hinge.py:49",
         max_abs_err=abs(got - ref),
-        ms=time_ms(torch, lambda: hinge.hinge_sum_blockwise(pos, neg), 10),
+        max_rel_err=float(((part - ref_part).abs()
+                           / ref_part.abs().clamp(min=1e-30)).max()),
+        ms=ms,
         plain_ms=time_ms(torch, lambda: hinge.hinge_partials_plain(
             pos, neg).sum(), 2),
         bound_ms=bnd, bound_by=by, library_ms=None,
         sorted_ms=time_ms(torch, lambda: hinge.hinge_sum_sorted(pos, neg),
-                          10),
-        shape=f"P = N = {HINGE_N}, f32",
-        tolerance=f"total rel 1e-5 vs plain and sorted (sorted {srt})")
-    del pos, neg
+                          20),
+        issue_floor_ms=issue / 1.98e9 * 1e3,
+        sm_mhz_under_load=mhz,
+        issue_floor_at_that_clock_ms=issue / (mhz * 1e6) * 1e3 if mhz
+        else None,
+        slices=cuda_build.load("hinge").hinge_slices(n, n),
+        profiler=profile_calls(torch, run, 20),
+        shape=f"P = N = {n}, f32",
+        tolerance=f"total rel 1e-5 vs plain and sorted (sorted {srt}); "
+                  f"partials rel 1e-5; two calls bit-identical")
+
+
+def kernel_checks_2(torch):
+    """E, F and H against their plain versions on the card, with times,
+    bounds and yardsticks (E: the sorted form, no single library call
+    computes the all-pairs hinge; F, H: the q.t^T product in torch.matmul)."""
+    from opencv_dlco_tpu_torch.ops.knn_fused import knn2_fused, knnk_fused
+
+    results = {"E": e_row(torch, HINGE_N), "E8192": e_row(torch, 8192)}
 
     def knnk10(q, t, bf16):
         return knnk_fused(q, t, 10, bf16=bf16)
@@ -1297,6 +1363,19 @@ def kernel_checks_3(torch, chunks):
     return rows
 
 
+def run_bench_hinge(root):
+    """The port's bench through its entry point, suite "hinge" (kernel E
+    against the sorted form at P = N = 50,000), on the card; returns the
+    details as written to the file."""
+    from opencv_dlco_tpu_torch import bench
+
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, bench.DEFAULT_OUT)
+    bench.run(suite="hinge", out_path=path)
+    with open(path) as fh:
+        return json.load(fh)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1438,6 +1517,17 @@ def main() -> int:
             raise AssertionError("kernel G never launched on the SLAM path")
         print("SLAM:", json.dumps(facts3), flush=True)
 
+        # -- the bench entry point, suite "hinge" (kernel E) ---------------
+        details, launches4 = counted(run_bench_hinge,
+                                     os.path.join(root, "bench"))
+        print("bench launches:", json.dumps(launches4), flush=True)
+        if launches4["E"] == 0:
+            raise AssertionError("kernel E never launched in the bench")
+        missing = {"kernel_time", "sorted_time"} - set(details["hinge"])
+        if missing:
+            raise AssertionError(f"bench hinge details lack {missing}")
+        print("bench hinge:", json.dumps(details["hinge"]), flush=True)
+
         # the kernels' checks and profiles come before the SLAM profile
         res = kernel_checks(torch, ws, out["dist"])
         res.update(kernel_checks_2(torch))
@@ -1469,10 +1559,12 @@ def main() -> int:
             r = {k: v for k, v in res[row].items()
                  if k not in ("shape", "tolerance", "sorted_ms",
                               "max_rel_err", "device_us_per_step",
+                              "issue_floor_ms", "sm_mhz_under_load",
+                              "issue_floor_at_that_clock_ms", "slices",
                               "launches_per_call", "bytes_per_step",
                               "profiler", "pose_chunks")}
             table.append({**r, "launches": launches[key] + launches2[key]
-                          + launches3[key]})
+                          + launches3[key] + launches4[key]})
         print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
         shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"kernels": table}))

@@ -2,7 +2,8 @@
 
 The subcommands and flags of ``opencv_dlco_tpu.cli`` for the stages the
 port carries; each stage is idempotent (resume-safe). Runs on the CUDA
-device; ``slam`` takes ``--device cpu`` for the plain PyTorch path.
+device; ``slam`` and ``bench`` take ``--device cpu`` for the plain PyTorch
+path.
 
 Usage examples:
     python -m opencv_dlco_tpu_torch.cli convert  -w ws --dataset liberty --patch-dir /data/liberty
@@ -19,6 +20,7 @@ Usage examples:
     python -m opencv_dlco_tpu_torch.cli workflow -w ws --datasets liberty,notredame
     python -m opencv_dlco_tpu_torch.cli e2e      -w ws
     python -m opencv_dlco_tpu_torch.cli slam     --root kitti --sequence 07 --model vgg_generated_64.i
+    python -m opencv_dlco_tpu_torch.cli bench    --suite hinge
 """
 
 from __future__ import annotations
@@ -178,6 +180,13 @@ def cmd_slam(args):
     print(json.dumps(out, indent=2))
 
 
+def cmd_bench(args):
+    from . import bench
+
+    bench.run(suite=args.suite, out_path=args.out or bench.DEFAULT_OUT,
+              device=args.device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m opencv_dlco_tpu_torch.cli", description=__doc__,
@@ -315,6 +324,18 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--out", default=None,
                     help="write trajectory + eval JSON here")
     sp.set_defaults(fn=cmd_slam)
+
+    sp = sub.add_parser("bench", help="run benchmark suite")
+    sp.add_argument("--suite", default="all",
+                    help="all, headline, pr, sweep, brown, hinge, stage3, "
+                         "pj, pj_soak, precision, slam, slam_long, slam_xl "
+                         "or matching")
+    sp.add_argument("--out", default=None,
+                    help="the details file (JSON; default "
+                         "bench_details_torch.json)")
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    sp.set_defaults(fn=cmd_bench)
     return p
 
 

@@ -87,6 +87,14 @@ def compute_pr_stats(params: np.ndarray, dists: torch.Tensor,
     return out
 
 
+def _pr_split_distances(w, pos_trn, neg_trn, pos_val, neg_val):
+    """Each split's PR model distances, split @ w in f32 (TF32 off); w
+    (F,) or (1, F)."""
+    w = w.reshape(-1).to(torch.float32)
+    return tuple(torch.matmul(x, w)
+                 for x in (pos_trn, neg_trn, pos_val, neg_val))
+
+
 def _split_roc(pos_d_trn, neg_d_trn, pos_d_val, neg_d_val):
     pd = torch.cat([pos_d_trn, pos_d_val, neg_d_trn, neg_d_val])
     n_pos = pos_d_trn.shape[0] + pos_d_val.shape[0]
@@ -105,9 +113,9 @@ def compute_pr_stats_splits(params, splits, w, n_channels: int = 8,
     out = _geometry_record(params, w, n_channels)
     if max_dim != -1 and out["dim"] > max_dim:
         return out
-    wt = _as_f32(w, splits["pos_trn"]).reshape(-1)
-    ds = [torch.matmul(splits[k], wt)
-          for k in ("pos_trn", "neg_trn", "pos_val", "neg_val")]
+    ds = _pr_split_distances(_as_f32(w, splits["pos_trn"]),
+                             *(splits[k] for k in ("pos_trn", "neg_trn",
+                                                   "pos_val", "neg_val")))
     fpr95, auc = _split_roc(*ds)
     out["fpr95"] = float(fpr95)
     out["auc"] = float(auc)

@@ -51,7 +51,9 @@ SIGNATURES = {
     "rda_narrow": {"rda_narrow_run": ([_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _I, _I, _I, _I, _I, _I, _P],
                                       _I)},
-    "hinge": {"hinge_launch": ([_P, _P, _P, _I, _I, _P], _I)},
+    "hinge": {"hinge_slices": ([_I, _I], _I),
+              "hinge_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+                               _I)},
     "knn_topk": {
         "knn_topk_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "knn_topk_f32_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

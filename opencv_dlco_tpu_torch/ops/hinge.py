@@ -10,8 +10,9 @@ kSubtractVectorsByRows, src/kernelop-opencv.cu:49-66):
   k(p) = #{ j : n_j < p + 1 }. Leading dimensions are batch dimensions (one
   loss per sweep entry). The validation path of both learners.
 - ``hinge_sum_blockwise``: kernel E, the all-pairs form with per-positive
-  partial sums (``csrc/hinge.cu``), kept for summation-order parity. On a
-  CPU tensor it runs ``hinge_partials_plain``.
+  partial sums (``csrc/hinge.cu``), kept for summation-order parity;
+  ``hinge_partials`` returns the kernel's partials. On a CPU tensor both
+  run ``hinge_partials_plain``.
 - ``hinge_sum``: the dispatcher, sorted by default.
 """
 
@@ -22,6 +23,7 @@ import torch
 from . import cuda_build
 
 TILE_N = 2048  # negatives per partial sum of the plain version (the TPU tile)
+TILE_P = 1024  # positives per CTA of kernel E (csrc/hinge.cu)
 
 
 def hinge_sum_sorted(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
@@ -51,26 +53,63 @@ def hinge_partials_plain(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def hinge_sum_blockwise(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
-    """All-pairs hinge sum through kernel E: per-positive partial sums on
-    the device, then one sum over positives. Inputs are flattened; the
-    P x N matrix never exists. Returns a 0-d f32 tensor."""
+def _flat(pos: torch.Tensor, neg: torch.Tensor, what: str):
     pos = pos.reshape(-1).to(torch.float32).contiguous()
     neg = neg.reshape(-1).to(torch.float32).contiguous()
     if pos.device != neg.device:
-        raise ValueError("hinge_sum_blockwise: pos and neg must share a device")
-    if pos.device.type == "cpu":
-        return hinge_partials_plain(pos, neg).sum()
-    per_pos = torch.empty_like(pos)
+        raise ValueError(f"{what}: pos and neg must share a device")
+    return pos, neg
+
+
+def _kernel_e(pos: torch.Tensor, neg: torch.Tensor):
+    """Kernel E on flat f32 CUDA tensors, P > 0: (per-positive sums (P,),
+    their total, 0-d), both from one launch (and a memset of the kernel's
+    counters)."""
+    n_pos, n_neg = pos.shape[0], neg.shape[0]
+    if neg.data_ptr() % 16:
+        neg = neg.clone()  # the kernel copies whole float4s
+    dev = pos.device
+    n_pb = -(-n_pos // TILE_P)
     lib = cuda_build.load("hinge")
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hinge_launch(pos.data_ptr(), neg.data_ptr(),
-                              per_pos.data_ptr(), pos.shape[0], neg.shape[0],
-                              stream)
+    with torch.cuda.device(dev):
+        n_slices = lib.hinge_slices(n_pos, n_neg)
+        cuda_build.check(max(0, -n_slices), "hinge_sum_blockwise")
+        # one allocation: per_pos (16-byte aligned), the total, the
+        # slices' partials, the block counters (u32, zeroed by the launch)
+        n_pad = -(-n_pos // 4) * 4
+        buf = torch.empty(n_pad + 4 + n_slices * n_pos + n_pb + 1,
+                          dtype=torch.float32, device=dev)
+        per_pos, total = buf[:n_pos], buf[n_pad]
+        ptr, f4 = buf.data_ptr(), 4
+        rc = lib.hinge_launch(
+            pos.data_ptr(), neg.data_ptr(), ptr, ptr + f4 * n_pad,
+            ptr + f4 * (n_pad + 4), ptr + f4 * (n_pad + 4 + n_slices * n_pos),
+            n_pos, n_neg, n_slices, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(rc, "hinge_sum_blockwise")
     hinge_sum_blockwise.launches += 1
-    return per_pos.sum()
+    return per_pos, total
+
+
+def hinge_partials(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """(P,) per-positive sums of max(0, p + 1 - n): kernel E's on CUDA
+    tensors, the plain version's on CPU tensors."""
+    pos, neg = _flat(pos, neg, "hinge_partials")
+    if pos.device.type == "cpu":
+        return hinge_partials_plain(pos, neg)
+    return _kernel_e(pos, neg)[0] if pos.shape[0] else torch.zeros_like(pos)
+
+
+def hinge_sum_blockwise(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """All-pairs hinge sum through kernel E: per-positive partial sums and
+    their total in one launch, each added in a fixed order (two calls give
+    the same bits). Inputs are flattened; the P x N matrix never exists.
+    Returns a 0-d f32 tensor."""
+    pos, neg = _flat(pos, neg, "hinge_sum_blockwise")
+    if pos.device.type == "cpu":
+        return hinge_partials_plain(pos, neg).sum()
+    if not pos.shape[0]:
+        return torch.zeros((), dtype=torch.float32, device=pos.device)
+    return _kernel_e(pos, neg)[1]
 
 
 #: kernel launches since the count was last set to 0

@@ -194,20 +194,51 @@ def test_wrappers_raise_on_shapes_the_kernels_cannot_take(dev):
         ring_distances_fused(f[:192], pt, pt, bf16=True)
 
 
-@pytest.mark.parametrize("n_pos,n_neg", [(50_000, 50_000), (700, 2500),
-                                         (3, 5)])
+# P = N = 50,000 (the bench's shape) and 8,192; P on both sides of a
+# CTA's 1,024 positives and below it; N below one 256-negative slice, not a
+# multiple of 4, and 0
+@pytest.mark.parametrize("n_pos,n_neg", [
+    (50_000, 50_000), (8192, 8192), (700, 2500), (3, 5), (1, 3000),
+    (hinge.TILE_P - 1, 4099), (hinge.TILE_P + 1, 4099), (2500, 100),
+    (2500, 0)])
 def test_kernel_e_matches_plain(dev, n_pos, n_neg):
     rng = np.random.default_rng(n_pos)
     pos = torch.from_numpy(rng.normal(1.0, 0.6, n_pos).astype(np.float32))
     neg = torch.from_numpy(rng.normal(2.0, 0.8, n_neg).astype(np.float32))
     before = hinge.hinge_sum_blockwise.launches
-    got = float(hinge.hinge_sum_blockwise(pos.to(dev), neg.to(dev)))
+    got = hinge.hinge_sum_blockwise(pos.to(dev), neg.to(dev))
     assert hinge.hinge_sum_blockwise.launches == before + 1
-    ref = float(hinge.hinge_partials_plain(pos.to(dev), neg.to(dev)).sum())
+    ref = hinge.hinge_partials_plain(pos.to(dev), neg.to(dev))
     srt = float(hinge.hinge_sum_sorted(pos.to(dev), neg.to(dev)))
     # f32 sums of up to 2.5e9 terms in other orders
+    assert float(got) == pytest.approx(float(ref.sum()), rel=1e-5)
+    assert float(got) == pytest.approx(srt, rel=1e-5)
+    # per positive: sums of non-negative terms, each within a relative 1e-5
+    part = hinge.hinge_partials(pos.to(dev), neg.to(dev))
+    np.testing.assert_allclose(part.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5)
+    # the slices are combined in a fixed order: the same bits every call
+    again = hinge.hinge_sum_blockwise(pos.to(dev), neg.to(dev))
+    assert again.cpu().numpy().tobytes() == got.cpu().numpy().tobytes()
+    assert torch.equal(hinge.hinge_partials(pos.to(dev), neg.to(dev)), part)
+
+
+def test_kernel_e_empty_positives(dev):
+    before = hinge.hinge_sum_blockwise.launches
+    got = hinge.hinge_sum_blockwise(torch.zeros(0, device=dev),
+                                    torch.ones(10, device=dev))
+    assert float(got) == 0.0 and got.device.type == "cuda"
+    assert hinge.hinge_sum_blockwise.launches == before
+
+
+def test_kernel_e_unaligned_negatives(dev):
+    """A view whose data starts off a 16-byte boundary is copied first."""
+    rng = np.random.default_rng(3)
+    neg = torch.from_numpy(rng.normal(2.0, 0.8, 3001).astype(np.float32))
+    pos = torch.from_numpy(rng.normal(1.0, 0.6, 2000).astype(np.float32))
+    got = float(hinge.hinge_sum_blockwise(pos.to(dev), neg.to(dev)[1:]))
+    ref = float(hinge.hinge_partials_plain(pos, neg[1:]).sum())
     assert got == pytest.approx(ref, rel=1e-5)
-    assert got == pytest.approx(srt, rel=1e-5)
 
 
 def _clustered(dev, n, m, d, seed, scale=1.0):

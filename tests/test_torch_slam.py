@@ -328,24 +328,26 @@ def test_batched_pair_poses_matches_jax(exact):
 @pytest.fixture(scope="module")
 def slam_runs(exact):
     """run_slam of both packages on the exact features (compute_features
-    replaced by them), with one key tree; plus run_odometry on run_slam's
-    odometry key."""
+    replaced by them), with one key tree; plus the odometry run_slam made
+    inside, run_odometry on run_slam's odometry key (recorded at the call,
+    not run a second time)."""
     feats, gt, intr = exact
     frames = [None] * len(feats)
     key = jax.random.PRNGKey(0)
+    odo = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(js, "compute_features", lambda *a, **kw: feats)
-        mp.setattr(ps, "compute_features", lambda *a, **kw: feats)
+        for tag, mod in (("jax", js), ("port", ps)):
+            def record(*a, _tag=tag, _inner=mod.run_odometry, **kw):
+                assert _tag not in odo and kw["feats"] is feats
+                odo[_tag] = _inner(*a, **kw)
+                return odo[_tag]
+            mp.setattr(mod, "compute_features", lambda *a, **kw: feats)
+            mp.setattr(mod, "run_odometry", record)
         ref = js.run_slam(frames, intr, None, js.SlamConfig(**SLAM_CFG),
                           key=key)
         ours = ps.run_slam(frames, intr, None, ps.SlamConfig(**SLAM_CFG),
                            key=JaxKeys(key), device="cpu")
-    k_odo = jax.random.split(key, 3)[1]
-    ref_odo = js.run_odometry(frames, intr, None, js.SlamConfig(**SLAM_CFG),
-                              key=k_odo, feats=feats)
-    our_odo = ps.run_odometry(frames, intr, None, ps.SlamConfig(**SLAM_CFG),
-                              key=JaxKeys(k_odo), feats=feats, device="cpu")
-    return ours, ref, our_odo, ref_odo, gt
+    return ours, ref, odo["port"], odo["jax"], gt
 
 
 def test_run_slam_matches_jax(slam_runs):
