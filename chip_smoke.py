@@ -7,7 +7,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``opencv_dlco_tpu_torch/csrc`` (one nvcc per source, in parallel), and
    prints each kernel's registers, shared memory and spills from
    ``nvcc -Xptxas -v`` (and any ptxas performance note).
-2. Drives the trainer's stages 2-6 through the port's entry points at
+2. Draws stage 1's dataset on the card (``generate_synthetic_dataset`` on
+   a CUDA workspace: two 4,096-pair chunks through
+   ``synth_patch_pairs_device``), printing its seconds and pairs/s, and
+   holds the generator against the numpy route: one 1,024-pair draw at
+   HARD_PAIR_PARAMS by tests/test_data.py:109-140's gates, two draws from
+   one seed bit-identical, and the dataset's first chunk drawn again from
+   its seed bit-identical to the stored rows.
+   Then drives the trainer's stages 2-6 through the port's entry points at
    full Brown width: the 40,960-filter x 4,096-pixel bank (5,120 rings),
    64x64 patches, the full 16x16 PR grid (S = 256) with the reference-scale
    PR config (batch 2048, block_fused, bf16 splits, default precision),
@@ -25,6 +32,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
    descriptor on all 16,384 patches: verification, matching mAP (k = 10),
    the 2-NN ratio test and mutual nearest neighbours. Counts are set to 0
    just before and read just after; the run fails if F or H did not launch.
+3a. BASELINE config 3: the evaluation on the 16,384 patches once with the
+   64-D cap's descriptor and once with the SIFT baseline
+   (``ops/sift.sift_describe`` on the card): verification FPR95/AUC,
+   matching mAP at k = 10 (kernel H) and the 2-NN ratio test (F), both
+   rows on one line. Counts are set to 0 just before and read just after;
+   the run fails unless F and H launched. sift_describe on the card is
+   held against the CPU (2,048 patches, abs 1e-5), and H's and F's calls
+   on the SIFT descriptors against the plain version.
+3b. BASELINE config 4: tests/test_sfm.py's two-view scene (seed 2215, 220
+   blobs, f 300, c 160, 320 px) written as 8-bit BMPs, and the ``sfm``
+   command in-process with the 64-D cap's header, ``--intrinsics
+   300,300,160,160 --keypoints 512`` (the command's defaults otherwise),
+   cold and warm. Counts are set to 0 just before and read just after;
+   it fails unless F launched, the pose is finite and n_inliers >= 8. F's
+   call on SfM's recorded inputs (invalid rows at +-1e6) is held against
+   the plain version. It fails unless tests/test_sfm.py's pose gates hold
+   (n_matches >= 50, n_inliers >= 40, rms < 5e-3, rotation < 2 degrees,
+   |cos t| > 0.9).
 4. Drives SLAM at the repo's SLAM bench row: render_blob_sequence (seed
    2215, 48 frames, 256 px), SlamConfig(n_keypoints=256,
    kf_min_translation=2.5, kf_min_rotation=0.05, loop_gap=10) and the
@@ -60,7 +85,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    8,192 (totals against the plain version and the sorted form, partials
    against the plain version, two calls bit for bit, device time and
    launches a call from torch.profiler, the SM clock under load), F, H at
-   the benchmark's shapes, F also
+   the benchmark's shapes, F also on two-view SfM's descriptors and H on
+   the SIFT baseline's (d 128), F
    on the evaluation's own descriptors in both modes (f32 through
    knn_match(precision="highest")), F and H also at the 120-D export's
    width and at widths past one D chunk, F and H in f32 at d 64 and d 576,
@@ -127,6 +153,29 @@ def card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
+
+
+def write_bmp_gray(path, img):
+    """Write a (H, W) uint8 image as an uncompressed 8-bit BMP with a gray
+    palette (bottom-up rows padded to 4 bytes): needs only numpy."""
+    import numpy as np
+
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape
+    stride = (w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w] = img[::-1]
+    palette = np.repeat(np.arange(256, dtype=np.uint8), 4).reshape(256, 4)
+    palette[:, 3] = 0
+    offset = 14 + 40 + palette.nbytes
+    header = (b"BM" + np.array([offset + rows.nbytes, 0, offset],
+                               "<u4").tobytes()
+              + np.array([40, w, h], "<i4").tobytes()
+              + np.array([1, 8], "<u2").tobytes()
+              + np.array([0, rows.nbytes, 2835, 2835, 256, 0],
+                         "<u4").tobytes())
+    with open(path, "wb") as fh:
+        fh.write(header + palette.tobytes() + rows.tobytes())
 
 
 def time_ms(torch, fn, reps):
@@ -872,31 +921,51 @@ def knn_row(torch, name, fn, k, n, d, bf16, seed, profile=False):
     return row
 
 
+def knn_call_row(torch, q, t, k, shape, held):
+    """Kernel F (k <= 2) or H on the inputs a phase gave it: its times,
+    bound, one torch.matmul of the same bf16 product, and its and the
+    matmul's device time and launches per call; ``held`` is the phase's
+    (max abs err, tolerance) against the plain version."""
+    from opencv_dlco_tpu_torch.ops.knn_fused import (
+        knn2_fused, knn_plain, knnk_fused)
+
+    if k <= 2:
+        name, line = "knn2_fused", 69
+
+        def run():
+            return knn2_fused(q, t)
+    else:
+        name, line = "knnk_fused", 110
+
+        def run():
+            return knnk_fused(q, t, k)
+    n, d = q.shape
+    bnd, by, _ = knn_bound(n, t.shape[0], d, k, True)
+    qc, tc = q.to(torch.bfloat16), t.to(torch.bfloat16)
+    prof = profile_calls(torch, run, 10)
+    prof["library"] = profile_calls(torch, lambda: torch.matmul(qc, tc.T), 10)
+    return dict(
+        name=name, route="cuda",
+        source="opencv_dlco_tpu_torch/csrc/knn_topk.cu",
+        replaces=f"opencv_dlco_tpu/ops/knn_pallas.py:{line}",
+        max_abs_err=held[0], ms=time_ms(torch, run, 20),
+        plain_ms=time_ms(torch, lambda: knn_plain(q, t, k, bf16=True), 5),
+        bound_ms=bnd, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.matmul(qc, tc.T), 20),
+        shape=shape, tolerance=held[1], profiler=prof)
+
+
 def f_eval_row(torch, q, t):
     """Kernel F on the evaluation's own descriptors (the 64-D export on the
     smoke's positive pairs, as phase 3's ratio test calls it), against its
     plain version, with its times, bound, matmul yardstick and device time
     and launches per call."""
-    from opencv_dlco_tpu_torch.ops.knn_fused import knn2_fused, knn_plain
+    from opencv_dlco_tpu_torch.ops.knn_fused import knn2_fused
 
     n, d = q.shape
-    m = t.shape[0]
-    err, tol = hold_knn(torch, "F[evaluation]", q, t, 2, knn2_fused(q, t),
-                        True)
-    bnd, by, _ = knn_bound(n, m, d, 2, True)
-    qc, tc = q.to(torch.bfloat16), t.to(torch.bfloat16)
-    prof = profile_calls(torch, lambda: knn2_fused(q, t), 10)
-    prof["library"] = profile_calls(torch, lambda: torch.matmul(qc, tc.T), 10)
-    return dict(
-        name="knn2_fused", route="cuda",
-        source="opencv_dlco_tpu_torch/csrc/knn_topk.cu",
-        replaces="opencv_dlco_tpu/ops/knn_pallas.py:69", max_abs_err=err,
-        ms=time_ms(torch, lambda: knn2_fused(q, t), 20),
-        plain_ms=time_ms(torch, lambda: knn_plain(q, t, 2, bf16=True), 5),
-        bound_ms=bnd, bound_by=by,
-        library_ms=time_ms(torch, lambda: torch.matmul(qc, tc.T), 20),
-        shape=f"{n} x {m}, d {d}, k 2, bf16 (the evaluation's descriptors)",
-        tolerance=tol, profiler=prof)
+    held = hold_knn(torch, "F[evaluation]", q, t, 2, knn2_fused(q, t), True)
+    return knn_call_row(torch, q, t, 2, f"{n} x {t.shape[0]}, d {d}, k 2, "
+                        f"bf16 (the evaluation's descriptors)", held)
 
 
 def exact_dev(torch, q, t, got):
@@ -1078,6 +1147,295 @@ def kernel_checks_2(torch):
             torch, f"{key}[f32, d=576]", fn, k, KNN_F32_N, 576, False,
             seed=k, profile=True))
     return results
+
+
+# -- stage 1 on the card, the SIFT baseline and two-view SfM -----------------
+
+GEN_N = 1024                       # tests/test_data.py:120's draw
+DATASET_SEED = 11
+
+
+def gen_stats(np, p1, p2, labels):
+    d = np.abs(p1.astype(np.float32) - p2.astype(np.float32))
+    return (float(p1.mean()), float(p1.std()), float(d[labels == 1].mean()),
+            float(d[labels == 0].mean()))
+
+
+def hold_generator(torch, np, ws):
+    """The card's pair generator against the numpy route: one 1,024-pair
+    draw at HARD_PAIR_PARAMS held by tests/test_data.py:109-140's gates
+    (mean within 5%, std within 8%, the pos/neg mean-abs-diff ratio within
+    0.1 with pos < neg in both, labels equal), two draws from one seed
+    bit-identical, and stage 1's first chunk drawn again from its seed
+    bit-identical to the dataset's rows."""
+    from opencv_dlco_tpu_torch.data.store import ArtifactStore
+    from opencv_dlco_tpu_torch.data.synthetic import (
+        HARD_PAIR_PARAMS, synth_patch_pairs, synth_patch_pairs_device)
+
+    def draw(n, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return synth_patch_pairs_device(n, generator=g, device="cuda",
+                                        **HARD_PAIR_PARAMS)
+
+    a, b = draw(GEN_N, 7), draw(GEN_N, 7)
+    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("generator: two draws from one seed differ")
+    ref = synth_patch_pairs(np.random.default_rng(7), n_pairs=GEN_N,
+                            **HARD_PAIR_PARAMS)
+    am, asd, apos, aneg = gen_stats(np, *ref)
+    bm, bsd, bpos, bneg = gen_stats(np, *a)
+    gates = dict(labels_equal=bool(np.array_equal(ref[2], a[2])),
+                 mean=abs(am - bm) < 0.05 * am,
+                 std=abs(asd - bsd) < 0.08 * asd,
+                 pos_below_neg=apos < aneg and bpos < bneg,
+                 ratio=abs(apos / aneg - bpos / bneg) < 0.1)
+    facts = dict(numpy=dict(mean=am, std=asd, pos_over_neg=apos / aneg),
+                 card=dict(mean=bm, std=bsd, pos_over_neg=bpos / bneg),
+                 gates=gates, same_bits_two_draws=True)
+    if not all(gates.values()):
+        raise AssertionError(f"generator gates: {facts}")
+    chunk = draw(4096, DATASET_SEED * 1_000_003)
+    with ArtifactStore(ws.path("dataset", "synsmoke.h5"), "r") as st:
+        patches = st.read("Patches")
+        idx = st.read("Indices")
+    same = (np.array_equal(patches[:4096], chunk[0])
+            and np.array_equal(patches[N_PAIRS:N_PAIRS + 4096], chunk[1])
+            and np.array_equal(idx[:4096, 1] == idx[:4096, 3],
+                               chunk[2] == 1))
+    if not same:
+        raise AssertionError("stage 1's first chunk differs from a redraw "
+                             "from its seed")
+    facts["stage1_chunk0_redraw_same_bits"] = True
+    return facts
+
+
+def run_sift_phase(torch, ws, header_path):
+    """BASELINE config 3 on the smoke's 16,384 patches: the exported 64-D
+    cap's descriptor and the SIFT baseline (ops/sift.py on the card)
+    through the same evaluation (verification FPR95/AUC over the 8,192
+    pairs, matching mAP at k = 10 (H) and the 2-NN ratio test (F) over
+    the positive pairs). Returns both rows, the seconds, and SIFT's
+    matching inputs with a slice of the patches for the holds."""
+    from opencv_dlco_tpu_torch.data.brown import pair_labels
+    from opencv_dlco_tpu_torch.data.store import ArtifactStore
+    from opencv_dlco_tpu_torch.models.vgg import VGGDescriptor
+    from opencv_dlco_tpu_torch.ops.knn import knn_match, ratio_test
+    from opencv_dlco_tpu_torch.ops.sift import sift_describe
+    from opencv_dlco_tpu_torch.pipeline.eval import (
+        matching_map, verification)
+
+    with ArtifactStore(ws.path("dataset", "synsmoke.h5"), "r") as st:
+        idx = st.read("Indices")
+        patches = st.read("Patches")
+    with open(header_path) as fh:
+        model = VGGDescriptor.from_header(fh.read(), device="cuda")
+    i1 = torch.from_numpy(idx[:, 0]).long().cuda()
+    i2 = torch.from_numpy(idx[:, 2]).long().cuda()
+    labels = torch.from_numpy(pair_labels(idx)).cuda()
+    pos = labels == 1
+    secs, rows = {}, {}
+    timed = timer(torch, secs)
+    for name, describe in (
+            ("dlco", model.describe),
+            ("sift", lambda p: sift_describe(p, device="cuda"))):
+        desc = timed(f"{name}_describe", describe, patches)
+        d1, d2 = desc[i1], desc[i2]
+        ver = timed(f"{name}_verification", verification, d1, d2, labels)
+        q, t = d1[pos].contiguous(), d2[pos].contiguous()
+        gt = torch.arange(q.shape[0], dtype=torch.int32, device="cuda")
+        mm = timed(f"{name}_matching_map", matching_map, q, t, gt, k=10)
+        d_2, i_2 = timed(f"{name}_knn2", knn_match, q, t, k=2)
+        m_rt, ok_rt = ratio_test(d_2, i_2)
+        rows[name] = dict(
+            dim=int(desc.shape[1]),
+            desc_finite=bool(torch.isfinite(desc).all()),
+            fpr95=ver["fpr95"], auc=ver["auc"], matching_map=mm["map"],
+            precision_at_1=mm["precision_at_1"], n_queries=mm["n_queries"],
+            ratio_matches=int(ok_rt.sum()),
+            ratio_correct=int((m_rt == gt).sum()))
+    return rows, secs, (q, t, patches[:2048])
+
+
+def check_sift_phase(torch, np, inputs):
+    """sift_describe on the card against the same function on the CPU
+    (2,048 patches, abs 1e-5, TF32 off), then kernel H's (k = 10) and F's
+    (k = 2) calls on the SIFT descriptors repeated through knn_match and
+    held against the plain version; returns the facts and H's row."""
+    from opencv_dlco_tpu_torch.ops.knn import knn_match
+    from opencv_dlco_tpu_torch.ops.knn_fused import knn2_fused, knnk_fused
+    from opencv_dlco_tpu_torch.ops.sift import sift_describe
+
+    q, t, sub = inputs
+    got = sift_describe(sub, device="cuda").cpu()
+    ref = sift_describe(sub, device="cpu")
+    err = check_close("sift_describe card vs CPU", got, ref, (0.0, 1e-5))
+    facts = dict(sift_card_vs_cpu=dict(max_abs_err=err, n_patches=len(sub),
+                                       tolerance="abs 1e-5"))
+    held = {}
+    for what, k, wrapper in (("matching_k10", 10, knnk_fused),
+                             ("knn2", 2, knn2_fused)):
+        before = wrapper.launches
+        out = knn_match(q, t, k=k)
+        if wrapper.launches != before + 1:
+            raise AssertionError(f"SIFT {what}: knn_match did not launch "
+                                 f"{wrapper.__name__}")
+        held[what] = hold_knn(torch, f"SIFT {what}", q, t, k, out, bf16=True)
+    facts["kernels_vs_plain"] = {w: {"max_abs_err": e, "tolerance": tol}
+                                 for w, (e, tol) in held.items()}
+    n, d = q.shape
+    row = knn_call_row(torch, q, t, 10,
+                       f"{n} x {t.shape[0]}, d {d}, k 10, bf16 (the SIFT "
+                       f"baseline's matching mAP)", held["matching_k10"])
+    return facts, row
+
+
+SFM_SEED, SFM_F, SFM_C, SFM_SIZE, SFM_POINTS = 2215, 300.0, 160.0, 320, 220
+#: two_view_sfm's defaults, which the sfm command runs
+SFM_SETTINGS = dict(n_keypoints=512, ratio=0.85, ransac_iters=1024,
+                    ransac_thresh=1e-5, ba_iters=12)
+
+
+def render_3d_blobs(np, pts3d, amps, sigma_px, f, c, size, r=None, t=None):
+    """tests/test_sfm.py's splatter: Gaussian blobs at the projections of
+    3D points, seen from (r, t)."""
+    if r is not None:
+        pts3d = pts3d @ np.asarray(r).T + np.asarray(t)
+    u = f * pts3d[:, 0] / pts3d[:, 2] + c
+    v = f * pts3d[:, 1] / pts3d[:, 2] + c
+    yy, xx = np.mgrid[:size, :size].astype(np.float64)
+    img = np.zeros((size, size))
+    for ui, vi, a, s in zip(u, v, amps, sigma_px):
+        if -10 < ui < size + 10 and -10 < vi < size + 10:
+            img += a * np.exp(-((yy - vi) ** 2 + (xx - ui) ** 2)
+                              / (2 * s ** 2))
+    img = (img - img.min()) / (img.max() - img.min() + 1e-12)
+    return (img * 255).astype(np.uint8)
+
+
+def sfm_scene(torch, np):
+    """tests/test_sfm.py:77-91's two views: 220 blobs, f 300, c 160,
+    320 px, rotation so3_exp([0.02, -0.03, 0.01]), t [0.3, 0.1, 0.02]."""
+    from opencv_dlco_tpu_torch.geometry.se3 import so3_exp
+
+    rng = np.random.default_rng(SFM_SEED)
+    n = SFM_POINTS
+    pts3d = np.stack([rng.uniform(-3, 3, n), rng.uniform(-3, 3, n),
+                      rng.uniform(4, 9, n)], 1)
+    amps = rng.uniform(0.4, 1.0, n) * rng.choice([-1, 1], n)
+    sigmas = rng.uniform(2.0, 4.0, n)
+    r = so3_exp(torch.tensor([0.02, -0.03, 0.01])).numpy()
+    t = np.array([0.3, 0.1, 0.02])
+    img1 = render_3d_blobs(np, pts3d, amps, sigmas, SFM_F, SFM_C, SFM_SIZE)
+    img2 = render_3d_blobs(np, pts3d, amps, sigmas, SFM_F, SFM_C, SFM_SIZE,
+                           r=r, t=t)
+    return img1, img2, r, t
+
+
+def run_sfm_phase(torch, np, header_path, work_dir):
+    """The sfm command in-process on the scene written as 8-bit BMPs, with
+    the exported 64-D cap's header, twice (cold, then warm); kernel F's
+    call site in knn_match records its inputs and outputs. Returns the
+    facts, the seconds and the first call's F inputs and outputs."""
+    import io
+
+    from opencv_dlco_tpu_torch import cli
+    from opencv_dlco_tpu_torch.ops import knn
+
+    img1, img2, r, t = sfm_scene(torch, np)
+    os.makedirs(work_dir, exist_ok=True)
+    paths = [os.path.join(work_dir, f"view{i}.bmp") for i in (1, 2)]
+    for p, img in zip(paths, (img1, img2)):
+        write_bmp_gray(p, img)
+    argv = ["sfm", "--image1", paths[0], "--image2", paths[1],
+            "--model", header_path,
+            "--intrinsics", f"{SFM_F},{SFM_F},{SFM_C},{SFM_C}",
+            "--keypoints", str(SFM_SETTINGS["n_keypoints"])]
+    calls = []
+    inner = knn.knn2_fused
+
+    def record(query, train, **kw):
+        out = inner(query, train, **kw)
+        calls.append((query.clone(), train.clone(), out))
+        return out
+
+    secs, outs = {}, []
+    knn.knn2_fused = record
+    try:
+        for run in ("cold", "warm"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv)
+            torch.cuda.synchronize()
+            secs[f"sfm_{run}"] = round(time.perf_counter() - t0, 3)
+            outs.append(json.loads(buf.getvalue()))
+    finally:
+        knn.knn2_fused = inner
+    res = outs[0]
+    rot = np.asarray(res["rotation"])
+    tr = np.asarray(res["translation"])
+    if not (np.isfinite(rot).all() and np.isfinite(tr).all()):
+        raise AssertionError(f"sfm: non-finite pose {res}")
+    if res["n_inliers"] < 8:
+        raise AssertionError(f"sfm: {res['n_inliers']} inliers (< 8)")
+    if not calls:
+        raise AssertionError("sfm: knn_match never called kernel F")
+    dr = rot @ r.T
+    ang = float(np.degrees(np.arccos(np.clip((np.trace(dr) - 1) / 2,
+                                             -1, 1))))
+    cos = float(abs(tr @ t / (np.linalg.norm(tr) * np.linalg.norm(t)
+                              + 1e-12)))
+    gates = dict(n_matches=res["n_matches"] >= 50,
+                 n_inliers=res["n_inliers"] >= 40,
+                 rms_reproj=res["rms_reproj"] < 5e-3,
+                 rotation_deg=ang < 2.0, translation_cos=cos > 0.9)
+    facts = dict(n_matches=res["n_matches"], n_inliers=res["n_inliers"],
+                 n_points=res["n_points"], rms_reproj=res["rms_reproj"],
+                 rotation_err_deg=ang, translation_cos=cos,
+                 pose_gates_of_test_sfm=gates,
+                 pose_gates_met=all(gates.values()),
+                 settings=dict(SFM_SETTINGS, draws="DeviceDraws(0)"),
+                 warm_same_result=outs[1] == outs[0],
+                 f_calls_per_run=len(calls) // 2)
+    return facts, secs, calls[0]
+
+
+def hold_sfm_f(torch, q, t, got):
+    """Kernel F on two-view SfM's inputs (invalid detections at +1e6 in the
+    queries, -1e6 in the train rows) against the bf16 plain version: every
+    valid query's pair of indices and ratio-test decision equal; every
+    distance, masked rows included, within 1e-3 relative plus 1e-5 of
+    |q|^2 + |t|^2 (~5e13 on masked rows, whose candidates tie to f32
+    resolution: where their indices differ, the kernel's distance still
+    lies within that of the plain list's in the same slot)."""
+    from opencv_dlco_tpu_torch.ops.knn import ratio_test
+    from opencv_dlco_tpu_torch.ops.knn_fused import knn_plain
+
+    dk, ik = got
+    dp, ip = knn_plain(q, t, 2, bf16=True)
+    torch.cuda.synchronize()
+    vq = ~(q == 1e6).all(1)
+    if not torch.equal(ik[vq], ip[vq]):
+        raise AssertionError(f"F[sfm]: {int((ik[vq] != ip[vq]).sum())} "
+                             f"indices of valid queries differ")
+    if not torch.equal(ratio_test(dk, ik)[1][vq], ratio_test(dp, ip)[1][vq]):
+        raise AssertionError("F[sfm]: ratio-test decisions of valid "
+                             "queries differ")
+    qb, tb = q.bfloat16().double(), t.bfloat16().double()
+    mag = ((qb * qb).sum(1)[:, None]
+           + (tb * tb).sum(1)[ip.clamp(min=0).long()])
+    err = (dk.double() - dp.double()).abs()
+    bad = err > 1e-3 * dp.double().abs() + 1e-5 * mag
+    if bool(bad.any()) or bool((ik < 0).any()):
+        raise AssertionError(f"F[sfm]: {int(bad.sum())} distances outside "
+                             f"1e-3 rel + 1e-5 (|q|^2+|t|^2)")
+    swaps = int((ik[~vq] != ip[~vq]).sum())
+    return float(err[vq].max()), (
+        f"valid queries ({int(vq.sum())} of {q.shape[0]}): indices and "
+        f"ratio-test decisions identical, distances within 1e-3 rel + 1e-5 "
+        f"(|q|^2+|t|^2); masked queries: distances within the same "
+        f"(max abs err {float(err[~vq].max()) if bool((~vq).any()) else 0.0}"
+        f", {swaps} tied index swaps)")
 
 
 SLAM_FRAMES = 48                   # the SLAM bench row (bench_slam)
@@ -1418,11 +1776,15 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
         ws0 = Workspace(root, progress=False, device="cuda")
         t0 = time.perf_counter()
-        generate_synthetic_dataset(ws0, "synsmoke", seed=11,
+        generate_synthetic_dataset(ws0, "synsmoke", seed=DATASET_SEED,
                                    n_pairs=N_PAIRS)
-        print(f"dataset: {N_PAIRS} synthetic pairs (the full 500,000 cut "
-              f"for the time limit), store backend {BACKEND}, "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        dt = time.perf_counter() - t0
+        print(f"dataset: {N_PAIRS} synthetic pairs drawn on the card (the "
+              f"full 500,000 cut for the time limit), store backend "
+              f"{BACKEND}, {dt:.3f}s, {N_PAIRS / dt:.1f} pairs/s",
+              flush=True)
+        print("generator:", json.dumps(hold_generator(torch, np, ws0)),
+              flush=True)
 
         wrappers = {"A": ring_distances_fused,
                     "B": fused_rda.fused_block_train_wide,
@@ -1487,6 +1849,42 @@ def main() -> int:
         eval_qt = (out2["q"], out2["t"])
         del out2
 
+        # -- BASELINE config 3: the SIFT baseline against the header ----------
+        (sift_rows, sift_secs, sift_inputs), launches5 = counted(
+            run_sift_phase, torch, ws, header_64)
+        print("SIFT vs DLCO (config 3):", json.dumps(sift_rows), flush=True)
+        print("SIFT phase seconds:", json.dumps(sift_secs), flush=True)
+        print("SIFT phase launches:", json.dumps(launches5), flush=True)
+        missing = [k for k in "FH" if launches5[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels {missing} never launched in the "
+                                 f"SIFT phase")
+        sift_facts, h_sift_row = check_sift_phase(torch, np, sift_inputs)
+        print("SIFT phase:", json.dumps(sift_facts), flush=True)
+        del sift_inputs
+
+        # -- BASELINE config 4: the sfm command on rendered BMPs --------------
+        (sfm_facts, sfm_secs, sfm_call), launches6 = counted(
+            run_sfm_phase, torch, np, header_64, os.path.join(root, "sfm"))
+        print("SfM seconds:", json.dumps(sfm_secs), flush=True)
+        print("SfM launches:", json.dumps(launches6), flush=True)
+        if launches6["F"] == 0:
+            raise AssertionError("kernel F never launched in the sfm command")
+        q_s, t_s, got_s = sfm_call
+        f_sfm_held = hold_sfm_f(torch, q_s, t_s, got_s)
+        sfm_facts["f_vs_plain"] = {"max_abs_err": f_sfm_held[0],
+                                   "tolerance": f_sfm_held[1]}
+        print("SfM:", json.dumps(sfm_facts), flush=True)
+        if not sfm_facts["pose_gates_met"]:
+            raise AssertionError(
+                "sfm: the pose gates of tests/test_sfm.py:96-106 failed: "
+                + json.dumps(sfm_facts["pose_gates_of_test_sfm"]))
+        f_sfm_row = knn_call_row(
+            torch, q_s, t_s, 2, f"{q_s.shape[0]} x {t_s.shape[0]}, d "
+            f"{q_s.shape[1]}, k 2, bf16 (two-view SfM's descriptors, "
+            f"invalid rows at +-1e6)", f_sfm_held)
+        del sfm_call, q_s, t_s, got_s
+
         # -- SLAM at the bench row -----------------------------------------
         chunks = []                     # the counted run's G inputs
         g_outputs = {"counted": [], "steady": [], "profiled": []}
@@ -1533,6 +1931,8 @@ def main() -> int:
         res.update(kernel_checks_2(torch))
         res["Feval"] = f_eval_row(torch, *eval_qt)
         res["Feval_f32"] = f32_eval_row(torch, *eval_qt)
+        res["Fsfm"] = f_sfm_row
+        res["Hsift"] = h_sift_row
         res.update(kernel_checks_3(torch, chunks))
         steady = rerun_slam_path(torch, np, slam_inputs, recorder)
         print("SLAM steady state:", json.dumps(steady), flush=True)
@@ -1564,7 +1964,8 @@ def main() -> int:
                               "launches_per_call", "bytes_per_step",
                               "profiler", "pose_chunks")}
             table.append({**r, "launches": launches[key] + launches2[key]
-                          + launches3[key] + launches4[key]})
+                          + launches3[key] + launches4[key]
+                          + launches5[key] + launches6[key]})
         print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
         shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"kernels": table}))

@@ -2,8 +2,8 @@
 
 The subcommands and flags of ``opencv_dlco_tpu.cli`` for the stages the
 port carries; each stage is idempotent (resume-safe). Runs on the CUDA
-device; ``slam`` and ``bench`` take ``--device cpu`` for the plain PyTorch
-path.
+device; ``sfm``, ``slam`` and ``bench`` take ``--device cpu`` for the plain
+PyTorch path.
 
 Usage examples:
     python -m opencv_dlco_tpu_torch.cli convert  -w ws --dataset liberty --patch-dir /data/liberty
@@ -19,6 +19,7 @@ Usage examples:
     python -m opencv_dlco_tpu_torch.cli export   -w ws --pr ...-pr.h5#7 --pj ...-pj.h5 --out vgg_generated_64.i
     python -m opencv_dlco_tpu_torch.cli workflow -w ws --datasets liberty,notredame
     python -m opencv_dlco_tpu_torch.cli e2e      -w ws
+    python -m opencv_dlco_tpu_torch.cli sfm      --image1 a.bmp --image2 b.bmp --model vgg_generated_64.i --intrinsics 300,300,160,160
     python -m opencv_dlco_tpu_torch.cli slam     --root kitti --sequence 07 --model vgg_generated_64.i
     python -m opencv_dlco_tpu_torch.cli bench    --suite hinge
 """
@@ -145,6 +146,30 @@ def cmd_e2e(args):
         args.workspace, n_pairs=args.n_pairs, pr_iters=args.pr_iters,
         pj_iters=args.pj_iters, out_json=args.out_json)
     print(json.dumps(summary, indent=1, sort_keys=True, default=str))
+
+
+def cmd_sfm(args):
+    """Two-view SfM on an image pair (images decode through
+    ``native.load_gray``)."""
+    from .models.vgg import VGGDescriptor
+    from .native import load_gray
+    from .pipeline.sfm import two_view_sfm
+
+    img1 = load_gray(args.image1)
+    img2 = load_gray(args.image2)
+    with open(args.model) as f:
+        model = VGGDescriptor.from_header(f.read(), device=args.device)
+    fx, fy, cx, cy = (float(v) for v in args.intrinsics.split(","))
+    res = two_view_sfm(img1, img2, (fx, fy, cx, cy), model,
+                       n_keypoints=args.keypoints)
+    print(json.dumps({
+        "n_matches": res.n_matches,
+        "n_inliers": res.n_inliers,
+        "rms_reproj": res.rms_reproj,
+        "rotation": res.rotation.tolist(),
+        "translation": res.translation.tolist(),
+        "n_points": int(res.points3d.shape[0]),
+    }, indent=2))
 
 
 def cmd_slam(args):
@@ -307,6 +332,16 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--pj-iters", type=int, default=50_000)
     sp.add_argument("--out-json", default=None)
     sp.set_defaults(fn=cmd_e2e)
+
+    sp = sub.add_parser("sfm", help="two-view SfM on an image pair")
+    sp.add_argument("--image1", required=True)
+    sp.add_argument("--image2", required=True)
+    sp.add_argument("--model", required=True, help="vgg_generated .i header")
+    sp.add_argument("--intrinsics", required=True, help="fx,fy,cx,cy")
+    sp.add_argument("--keypoints", type=int, default=512)
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    sp.set_defaults(fn=cmd_sfm)
 
     sp = sub.add_parser("slam", help="monocular SLAM over a KITTI "
                                      "odometry-format sequence")

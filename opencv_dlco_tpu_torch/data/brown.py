@@ -5,7 +5,9 @@ parses the `m50_500000_500000_0.txt` pair index and crops the 16x16 grids
 of 64x64 patches out of `patchesNNNN.bmp` sheets into the `Indices` /
 `Patches` datasets of the artifact store.
 
-Sheets decode through cv2; patches land in one (N, 64, 64) uint8 array,
+Sheets decode through the native BMP decoder (``native.py``; cv2, then
+PIL, without it or for other formats); patches land in one (N, 64, 64)
+uint8 array,
 chunked on disk exactly like the reference's schema, so the artifact is
 the one the JAX package writes.
 """
@@ -45,9 +47,9 @@ def crop_patch_grid(sheet: np.ndarray, n_keep: int = GRID * GRID) -> np.ndarray:
 
 
 def _load_sheet(path: str) -> np.ndarray:
-    import cv2
+    from ..native import load_gray
 
-    return cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    return load_gray(path)
 
 
 def convert_brown_patches(patch_dir: str, out_path: str,

@@ -12,7 +12,8 @@ Poses are camera-to-world of the left gray camera (x_world = R x_cam + t),
 the SlamResult world_T_frame convention, so a loaded ground truth compares
 directly with ``pipeline/slam`` output through ``ate_rmse``.
 
-Images decode with cv2, or PIL when cv2 is missing.
+Images decode through ``native.load_gray``: ``.bmp`` with the native
+decoder, other formats with cv2, or PIL when cv2 is missing.
 """
 
 from __future__ import annotations
@@ -82,16 +83,9 @@ def intrinsics_from_projection(p: np.ndarray
 
 def load_image_gray(path: str) -> np.ndarray:
     """Decode one frame to uint8 (H, W) grayscale."""
-    try:
-        import cv2
-    except ImportError:
-        from PIL import Image
+    from ..native import load_gray
 
-        return np.asarray(Image.open(path).convert("L"))
-    img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-    if img is None:
-        raise ValueError(f"cv2 failed to decode {path}")
-    return img
+    return load_gray(path)
 
 
 def load_sequence(root: str, seq: str, camera: str = "image_0",

@@ -2,13 +2,15 @@
 
 Port of ``opencv_dlco_tpu/pipeline/e2e.py``:
 
-- ``generate_synthetic_dataset`` (the numpy route): no Brown raw data ships
-  with the repo, so datasets are drawn from the calibrated hard pair
-  distribution (data/synthetic.HARD_PAIR_PARAMS) at the published shape
-  (64x64 uint8, 50% matched, the m50 index layout). Chunks draw from
-  independent numpy substreams seeded (seed, chunk start), exactly as the
-  JAX package's numpy route, so both packages write the same dataset for
-  the same seed.
+- ``generate_synthetic_dataset``: no Brown raw data ships with the repo,
+  so datasets are drawn from the calibrated hard pair distribution
+  (data/synthetic.HARD_PAIR_PARAMS) at the published shape (64x64 uint8,
+  50% matched, the m50 index layout). On a CUDA workspace every full chunk
+  is drawn on the card (``synth_patch_pairs_device``, a generator seeded
+  ``seed * 1_000_003 + chunk start``); the tail chunk and CPU workspaces
+  take the numpy route, independent substreams seeded (seed, chunk start)
+  exactly as the JAX package's numpy route, so both packages write the
+  same dataset for the same seed on the CPU.
 - ``run_reference_scale``: the whole 11-stage chain at the reference's
   budgets in one call, every exported header round-tripped through
   ``parse_vgg_header`` and ``VGGDescriptor.from_header``, and a summary
@@ -27,7 +29,8 @@ import numpy as np
 import torch
 
 from ..data.store import ArtifactStore, remove_artifact
-from ..data.synthetic import HARD_PAIR_PARAMS, synth_patch_pairs
+from ..data.synthetic import (HARD_PAIR_PARAMS, synth_patch_pairs,
+                              synth_patch_pairs_device)
 from ..utils.configs import (
     PJLearnConfig,
     PJSweepGrid,
@@ -49,7 +52,8 @@ def generate_synthetic_dataset(ws, name: str, seed: int,
     """dataset/{name}.h5 with Indices (N x 4 int32) + Patches (2N x 64 x 64
     uint8): pair i references patches (i, N+i); positives share a 3D-point
     id, negatives don't (the pair_labels contract). Idempotent: a complete
-    dataset of this size is kept."""
+    dataset of this size is kept. A failure on the card raises: no chunk
+    falls back to numpy."""
     out = ws.path("dataset", f"{name}.h5")
     if os.path.exists(out):
         try:
@@ -63,6 +67,7 @@ def generate_synthetic_dataset(ws, name: str, seed: int,
             pass
         remove_artifact(out)
 
+    dev = torch.device(ws.device)
     indices = np.zeros((n_pairs, 4), np.int32)
     indices[:, 0] = np.arange(n_pairs)
     indices[:, 2] = np.arange(n_pairs) + n_pairs
@@ -71,9 +76,15 @@ def generate_synthetic_dataset(ws, name: str, seed: int,
                   chunk_rows=chunk, compression=0)
         for s in range(0, n_pairs, chunk):
             e = min(s + chunk, n_pairs)
-            rng = np.random.default_rng((seed, s))
-            p1, p2, labels = synth_patch_pairs(rng, n_pairs=e - s,
-                                               **HARD_PAIR_PARAMS)
+            if dev.type == "cuda" and e - s == chunk:
+                g = torch.Generator(device=dev)
+                g.manual_seed(seed * 1_000_003 + s)
+                p1, p2, labels = synth_patch_pairs_device(
+                    e - s, generator=g, device=dev, **HARD_PAIR_PARAMS)
+            else:
+                rng = np.random.default_rng((seed, s))
+                p1, p2, labels = synth_patch_pairs(rng, n_pairs=e - s,
+                                                   **HARD_PAIR_PARAMS)
             st.write_rows("Patches", s, p1)
             st.write_rows("Patches", n_pairs + s, p2)
             indices[s:e, 1] = indices[s:e, 0]

@@ -694,3 +694,92 @@ def test_kernels_f_and_h_f32_rerun_bit_identical(dev):
             a, b = fn(q, t), fn(q, t)
             torch.cuda.synchronize()
             assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# -- the slice with the pair generator, SIFT and SfM -----------------------
+
+def test_pair_generator_on_the_card_same_bits_and_gates(dev):
+    """synth_patch_pairs_device on the card: two draws from one seed give
+    the same bits, and 1,024 pairs at HARD_PAIR_PARAMS meet the JAX
+    suite's gates against the numpy route (tests/test_data.py:109-140)."""
+    from opencv_dlco_tpu_torch.data import synthetic as syn
+
+    def draw(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return syn.synth_patch_pairs_device(1024, generator=g, device=dev,
+                                            **syn.HARD_PAIR_PARAMS)
+
+    a, b = draw(7), draw(7)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    ref = syn.synth_patch_pairs(np.random.default_rng(7), n_pairs=1024,
+                                **syn.HARD_PAIR_PARAMS)
+
+    def stats(p1, p2, labels):
+        d = np.abs(p1.astype(np.float32) - p2.astype(np.float32))
+        return (p1.mean(), p1.std(), d[labels == 1].mean(),
+                d[labels == 0].mean())
+
+    am, asd, apos, aneg = stats(*ref)
+    bm, bsd, bpos, bneg = stats(*a)
+    np.testing.assert_array_equal(ref[2], a[2])
+    assert abs(am - bm) < 0.05 * am and abs(asd - bsd) < 0.08 * asd
+    assert apos < aneg and bpos < bneg
+    assert abs(apos / aneg - bpos / bneg) < 0.1
+
+
+def test_sift_describe_card_matches_cpu(dev):
+    """sift_describe on the card (f32, TF32 off) against the same function
+    on the CPU: abs 1e-5."""
+    from opencv_dlco_tpu_torch.ops.sift import sift_describe
+
+    patches = np.random.default_rng(3).integers(
+        0, 256, (4100, 64, 64)).astype(np.uint8)
+    got = sift_describe(patches, device=dev)
+    assert got.device.type == "cuda"
+    ref = sift_describe(patches, device="cpu")
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5)
+
+
+def sfm_masked_inputs(dev, n=512, d=48, n_valid=(300, 280), seed=0):
+    """Two-view SfM's 2-NN inputs: descriptors of |q|^2 ~ 40 (the exported
+    48-D header's scale), train rows a noisy permutation of the queries,
+    invalid detections at +1e6 (queries) and -1e6 (train), scattered."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((n, d), generator=g, device=dev)
+    t = q[torch.randperm(n, generator=g, device=dev)]
+    t = t + 0.3 * torch.randn((n, d), generator=g, device=dev)
+    vq = torch.zeros(n, dtype=torch.bool, device=dev)
+    vt = torch.zeros(n, dtype=torch.bool, device=dev)
+    vq[torch.randperm(n, generator=g, device=dev)[:n_valid[0]]] = True
+    vt[torch.randperm(n, generator=g, device=dev)[:n_valid[1]]] = True
+    q = torch.where(vq[:, None], q, torch.full_like(q, 1e6))
+    t = torch.where(vt[:, None], t, torch.full_like(t, -1e6))
+    return q.contiguous(), t.contiguous(), vq
+
+
+def test_kernel_f_on_sfm_masked_rows(dev):
+    """Kernel F through knn_match at two-view SfM's shape (512 x 512, d 48,
+    bf16) with masked rows: one launch; every valid query's pair of
+    indices and ratio-test decision equal to the plain version's; every
+    distance (masked rows included) within 1e-3 relative plus 1e-5 of
+    |q|^2 + |t|^2 of the plain one, where the indices differ (masked
+    rows only: their candidates tie to f32 resolution) at the plain
+    list's distance within the same tolerance."""
+    from opencv_dlco_tpu_torch.ops.knn import knn_match, ratio_test
+
+    q, t, vq = sfm_masked_inputs(dev)
+    before = knn_fused.knn2_fused.launches
+    dk, ik = knn_match(q, t, k=2)
+    assert knn_fused.knn2_fused.launches == before + 1
+    dp, ip = knn_fused.knn_plain(q, t, 2, bf16=True)
+    torch.cuda.synchronize()
+    assert torch.equal(ik[vq], ip[vq])
+    assert torch.equal(ratio_test(dk, ik)[1][vq], ratio_test(dp, ip)[1][vq])
+    qb, tb = q.bfloat16().double(), t.bfloat16().double()
+    mag = ((qb * qb).sum(1)[:, None]
+           + (tb * tb).sum(1)[ip.clamp(min=0).long()])
+    assert bool((ip >= 0).all() and (ik >= 0).all())
+    err = (dk.double() - dp.double()).abs()
+    assert bool((err <= 1e-3 * dp.double().abs() + 1e-5 * mag).all())
