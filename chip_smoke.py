@@ -71,6 +71,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
    smoke's workspace; it prints the bench's JSON headline. Counts are set
    to 0 just before and read just after; the run fails unless kernel E
    launched there and the details hold ``kernel_time`` and ``sorted_time``.
+5a. Multi-device, after phase 7 and before the workspace is removed:
+   (a) NCCL at world size 1 in this process, started by the port's
+   distributed_init: make_mesh(1, 1) on the card,
+   a psum and an all_gather, the port's dry run (parallel/dryrun.py), and
+   the group destroyed after; (b) two ranks on the one card over gloo (NCCL
+   refuses two ranks on one GPU), this script started twice with
+   ``--multi-rank RANK WORK``: each runs the dry run at JAX's (1, 2) mesh,
+   ``compdist(sharded=True)`` of the 8,192 pairs at the full bank into the
+   multi-writer store, the S-256 PR sweep chunk (batch 2,048, bf16,
+   block_fused, 48 steps) over dp 2 and ``run_slam`` over a (2, 1) mesh at
+   the SLAM bench row, each with its counts set to 0 just before and read
+   just after, while this process computes one single-device sweep chunk
+   with the same offsets and a single-device ``run_slam``. It fails unless
+   A, B and G launched in every rank, the sharded matrix equals phase 2's
+   bit for bit, the sweep chunk equals the single-device call (bit for
+   bit, or within TOL_BF16, reported) and the refined poses lie within
+   2e-3 of the single-device run's; each rank's seconds, launches,
+   collectives and pose hash are printed and written to
+   ``chiprun_out/chip_smoke_multi_device.json``. Their A, B and G launches
+   join the kernels line.
 6. Checks the outputs: distance matrix shape, finiteness and separation,
    the first 64 rows against the f32 route, a finite sweep, saved
    histories, a ranked row; finite diffs and PJ models, four exports that
@@ -1721,6 +1741,273 @@ def kernel_checks_3(torch, chunks):
     return rows
 
 
+# -- the multi-device phase ------------------------------------------------
+
+MD_RANKS = 2                       # ranks on the one card, over gloo
+MD_SWEEP_SEED = 2215               # the block offsets of the sweep chunk
+SLAM_ATOL = 2e-3                   # two ranks against one device (poses)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def slam_inputs(np, header_path):
+    """The SLAM bench row (run_slam_path's frames, model and config)."""
+    from opencv_dlco_tpu_torch.data.synthetic import render_blob_sequence
+    from opencv_dlco_tpu_torch.models.vgg import VGGDescriptor
+    from opencv_dlco_tpu_torch.pipeline.slam import SlamConfig
+
+    with open(header_path) as fh:
+        model = VGGDescriptor.from_header(fh.read(), device="cuda")
+    frames, _, intr = render_blob_sequence(np.random.default_rng(2215),
+                                           SLAM_FRAMES, size=SLAM_SIZE)
+    cfg = SlamConfig(n_keypoints=256, kf_min_translation=2.5,
+                     kf_min_rotation=0.05, loop_gap=10)
+    return frames, intr, model, cfg
+
+
+def md_sweep_inputs(torch, ws, dist_path):
+    """The PR grid's splits (bf16 on the card), mus, gammas and a zero
+    state: the sweep chunk's inputs, from ``dist_path``."""
+    from opencv_dlco_tpu_torch.models.pr_rda import pr_init
+    from opencv_dlco_tpu_torch.utils.configs import (PRLearnConfig,
+                                                     PRSweepGrid)
+
+    base = PRLearnConfig()
+    data = ws._load_split(dist_path, base.train_frac, base.seed)
+    pos, neg = (torch.from_numpy(data[k]).cuda().to(torch.bfloat16)
+                for k in ("pos_trn", "neg_trn"))
+    combos = PRSweepGrid().combos()
+    mus = torch.tensor([c[0] for c in combos], device="cuda")
+    gammas = torch.tensor([c[1] for c in combos], device="cuda")
+    return pos, neg, mus, gammas, pr_init(pos.shape[1], len(combos),
+                                          device="cuda")
+
+
+def md_rank_main(rank, work):
+    """One of the MD_RANKS processes of phase (b) (``chip_smoke.py
+    --multi-rank RANK WORK``): on the one card over gloo, the dry run at
+    JAX's (1, 2) mesh, stage 3 sharded over the smoke's dataset, the PR
+    sweep chunk over dp 2 and run_slam over a (2, 1) mesh; writes its
+    launches, seconds, collective counts and results into ``work``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from opencv_dlco_tpu_torch.ops import fused_rda, knn_fused
+    from opencv_dlco_tpu_torch.ops.pair_distance_fused import (
+        ring_distances_fused)
+    from opencv_dlco_tpu_torch.parallel.distributed import distributed_init
+    from opencv_dlco_tpu_torch.parallel.dryrun import (dryrun_multichip,
+                                                       summary_line)
+    from opencv_dlco_tpu_torch.parallel.mesh import make_mesh
+    from opencv_dlco_tpu_torch.parallel.sharding import (
+        pr_sweep_chunk_sharded)
+    from opencv_dlco_tpu_torch.pipeline.slam import run_slam
+    from opencv_dlco_tpu_torch.pipeline.stages import Workspace
+    from opencv_dlco_tpu_torch.utils.configs import DescriptorConfig
+
+    if not distributed_init(backend="gloo", device="cuda"):
+        raise RuntimeError("phase (b): no multi-process group")
+    wrappers = {"A": ring_distances_fused,
+                "B": fused_rda.fused_block_train_wide,
+                "G": knn_fused.knn2_fused_batched}
+    calls = {"all_reduce": 0, "all_gather": 0}
+    for op in calls:
+        inner = getattr(dist, op)
+
+        def counted_op(*a, _op=op, _inner=inner, **kw):
+            calls[_op] += 1
+            return _inner(*a, **kw)
+        setattr(dist, op, counted_op)
+    facts = {"rank": rank, "secs": {}, "launches": {}, "collectives": {}}
+
+    def phase(name, fn, *a, **kw):
+        for w in wrappers.values():
+            w.launches = 0
+        for op in calls:
+            calls[op] = 0
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        facts["secs"][name] = round(time.perf_counter() - t0, 3)
+        facts["launches"][name] = {k: w.launches
+                                   for k, w in wrappers.items()}
+        facts["collectives"][name] = dict(calls)
+        return out
+
+    facts["dryrun"] = summary_line(phase("dryrun", dryrun_multichip,
+                                         "cuda"))
+    ws = Workspace(os.path.dirname(work), progress=False, pair_block=256,
+                   desc_cfg=DescriptorConfig(matmul_precision="default"),
+                   device="cuda")
+    facts["dist_path"] = phase("compdist", ws.compdist, "synsmoke",
+                               sharded=True)
+    mesh = make_mesh(dp=MD_RANKS, mp=1, device="cuda")
+    pos, neg, mus, gammas, st0 = md_sweep_inputs(torch, ws,
+                                                 facts["dist_path"])
+    st = phase("sweep_chunk", pr_sweep_chunk_sharded, mesh, pos, neg, mus,
+               gammas, st0, torch.Generator().manual_seed(MD_SWEEP_SEED),
+               batch=PR_BATCH, n_steps=STEPS_PER_LOG,
+               sampling="block_fused", precision="default")
+    with open(os.path.join(work, "header.txt")) as fh:
+        frames, intr, model, cfg = slam_inputs(np, fh.read())
+    res = phase("run_slam", run_slam, frames, intr, model, cfg, mesh=mesh)
+    facts["sweep_sha1"] = hashlib.sha1(
+        st.w.cpu().numpy().tobytes()
+        + st.df_avg.cpu().numpy().tobytes()).hexdigest()[:12]
+    facts["refined_sha1"] = pose_sha1(res)
+    if rank == 0:
+        np.save(os.path.join(work, "sweep_w.npy"), st.w.cpu().numpy())
+        np.save(os.path.join(work, "sweep_df.npy"), st.df_avg.cpu().numpy())
+        np.save(os.path.join(work, "slam_r.npy"), res.rotations)
+        np.save(os.path.join(work, "slam_t.npy"), res.translations)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump(facts, fh)
+    return 0
+
+
+def nccl_world_of_one(torch):
+    """Phase (a): NCCL at world size 1 in this process, started through
+    the port's distributed_init (naming the backend and the coordinator is
+    what starts a world of one), make_mesh(1, 1) on the card and the dry
+    run; the group is destroyed after, so later phases (and is_primary)
+    see none."""
+    import torch.distributed as dist
+    from opencv_dlco_tpu_torch.parallel.distributed import (
+        distributed_init, is_primary)
+    from opencv_dlco_tpu_torch.parallel.dryrun import (dryrun_multichip,
+                                                       summary_line)
+    from opencv_dlco_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    if distributed_init(coordinator=f"localhost:{free_port()}",
+                        num_processes=1, process_id=0, backend="nccl",
+                        device="cuda") or not dist.is_initialized():
+        raise AssertionError("distributed_init did not start a world of one")
+    try:
+        mesh = make_mesh(1, 1, device="cuda")
+        x = torch.arange(8.0, device="cuda")
+        if not (torch.equal(mesh.psum(x, "dp"), x)
+                and torch.equal(mesh.all_gather(x, "mp"), x)):
+            raise AssertionError("NCCL world of one: psum/all_gather")
+        line = summary_line(dryrun_multichip("cuda"))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    if dist.is_initialized() or not is_primary():
+        raise AssertionError("the NCCL group outlived phase (a)")
+    return dict(backend=backend, dryrun=line,
+                seconds=round(time.perf_counter() - t0, 3))
+
+
+def run_multi_device_phase(torch, np, ws, dist_h5, header_path):
+    """Phase (a), then phase (b): MD_RANKS ranks on the one card over gloo
+    (NCCL refuses two ranks on one GPU), each running md_rank_main, while
+    this process computes the references: one single-device sweep chunk
+    with the same offsets and a single-device run_slam. Fails unless A, B
+    and G launched in every rank, the sharded stage-3 matrix equals the
+    single-device one bit for bit, the sweep chunk equals the reference
+    (bit for bit, or within TOL_BF16, which is reported) and the refined
+    poses lie within SLAM_ATOL of the single-device run's."""
+    from opencv_dlco_tpu_torch.data.shard_store import ShardedArrayStore
+    from opencv_dlco_tpu_torch.data.store import ArtifactStore
+    from opencv_dlco_tpu_torch.models.pr_rda import pr_train_chunk
+    from opencv_dlco_tpu_torch.pipeline.slam import run_slam
+
+    facts = {"a": nccl_world_of_one(torch)}
+    work = os.path.join(ws.root, "multi_device")
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(work, "header.txt"), "w") as fh:
+        fh.write(header_path)
+    port = free_port()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(MD_RANKS):
+            env = dict(os.environ, MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port),
+                       DLCO_NUM_PROCESSES=str(MD_RANKS),
+                       DLCO_PROCESS_ID=str(rank))
+            env.pop("DLCO_COORDINATOR", None)
+            with open(os.path.join(work, f"rank{rank}.log"), "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--multi-rank", str(rank), work],
+                    env=env, stdout=log, stderr=subprocess.STDOUT))
+        # the references, while the ranks run
+        pos, neg, mus, gammas, st0 = md_sweep_inputs(torch, ws, dist_h5)
+        ref = pr_train_chunk(pos, neg, mus, gammas, st0,
+                             torch.Generator().manual_seed(MD_SWEEP_SEED),
+                             batch=PR_BATCH, n_steps=STEPS_PER_LOG,
+                             sampling="block_fused", precision="default")
+        ref_w, ref_df = ref.w.cpu().numpy(), ref.df_avg.cpu().numpy()
+        del pos, neg, ref
+        one = run_slam(*slam_inputs(np, header_path))
+        for proc in procs:
+            proc.wait(timeout=900)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    facts["b_seconds"] = round(time.perf_counter() - t0, 3)
+    bad = [r for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        with open(os.path.join(work, f"rank{bad[0]}.log")) as fh:
+            raise AssertionError(f"phase (b): ranks {bad} failed:\n"
+                                 + fh.read()[-6000:])
+    ranks = []
+    for r in range(MD_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    facts["ranks"] = ranks
+    for rf in ranks:
+        for stage, key in (("compdist", "A"), ("sweep_chunk", "B"),
+                           ("run_slam", "G")):
+            if rf["launches"][stage][key] == 0:
+                raise AssertionError(f"rank {rf['rank']}: kernel {key} "
+                                     f"never launched in {stage}")
+    if len({(rf["sweep_sha1"], rf["refined_sha1"]) for rf in ranks}) != 1:
+        raise AssertionError(f"ranks disagree: {ranks}")
+
+    st = ShardedArrayStore(ranks[0]["dist_path"])
+    with ArtifactStore(dist_h5, "r") as h5:
+        for name in ("Distance", "Label"):
+            if not np.array_equal(st.read(name), h5.read(name)):
+                raise AssertionError(f"sharded stage 3: {name} differs "
+                                     f"from the single-device matrix")
+    facts["stage3_bit_equal"] = True
+
+    got_w = torch.from_numpy(np.load(os.path.join(work, "sweep_w.npy")))
+    got_df = torch.from_numpy(np.load(os.path.join(work, "sweep_df.npy")))
+    facts["sweep_bit_equal"] = bool(np.array_equal(got_w.numpy(), ref_w)
+                                    and np.array_equal(got_df.numpy(),
+                                                       ref_df))
+    facts["sweep_max_abs_err"] = max(
+        check_close("sweep chunk w (dp 2 vs one call)", got_w,
+                    torch.from_numpy(ref_w), TOL_BF16),
+        check_close("sweep chunk df (dp 2 vs one call)", got_df,
+                    torch.from_numpy(ref_df), TOL_BF16))
+
+    r2 = np.load(os.path.join(work, "slam_r.npy"))
+    t2 = np.load(os.path.join(work, "slam_t.npy"))
+    err = max(float(np.abs(r2 - one.rotations).max()),
+              float(np.abs(t2 - one.translations).max()))
+    facts["slam_max_abs_err_vs_one_device"] = err
+    facts["slam_one_device_sha1"] = pose_sha1(one)
+    if not (np.isfinite(err) and err <= SLAM_ATOL):
+        raise AssertionError(f"two-rank SLAM poses {err} from the "
+                             f"single-device run (atol {SLAM_ATOL})")
+    return facts
+
+
 def run_bench_hinge(root):
     """The port's bench through its entry point, suite "hinge" (kernel E
     against the sorted form at P = N = 50,000), on the card; returns the
@@ -1741,6 +2028,8 @@ def main() -> int:
     except ImportError as err:
         print(f"chip_smoke: {err}", file=sys.stderr)
         return 1
+    if len(sys.argv) == 4 and sys.argv[1] == "--multi-rank":
+        return md_rank_main(int(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
@@ -1948,6 +2237,26 @@ def main() -> int:
                                  f"runs: {refined_by_run}")
         print("SLAM G outputs by run:", json.dumps(g_outputs), flush=True)
         del slam_inputs
+
+        # -- multi-device: NCCL at world size 1, then two gloo ranks -------
+        md = run_multi_device_phase(torch, np, ws, out["dist"], header_64)
+        print("multi-device (a), NCCL world of one:", json.dumps(md["a"]),
+              flush=True)
+        for rf in md["ranks"]:
+            print(f"multi-device (b) rank {rf['rank']}: "
+                  + json.dumps({k: rf[k] for k in (
+                      "secs", "launches", "collectives", "sweep_sha1",
+                      "refined_sha1", "dryrun")}), flush=True)
+        print("multi-device (b):", json.dumps(
+            {k: v for k, v in md.items() if k not in ("a", "ranks")}),
+            flush=True)
+        with open(os.path.join(log_dir, "chip_smoke_multi_device.json"),
+                  "w") as fh:
+            json.dump({"card": card, **md}, fh, indent=1)
+        md_launches = {k: sum(rf["launches"][stage][k]
+                              for rf in md["ranks"]
+                              for stage in rf["launches"])
+                       for k in "ABG"}
         for key, r in res.items():
             print(f"kernel {key}: " + json.dumps(r), flush=True)
         print("kernel shares:", json.dumps(kernel_shares(
@@ -1965,7 +2274,8 @@ def main() -> int:
                               "profiler", "pose_chunks")}
             table.append({**r, "launches": launches[key] + launches2[key]
                           + launches3[key] + launches4[key]
-                          + launches5[key] + launches6[key]})
+                          + launches5[key] + launches6[key]
+                          + md_launches.get(key, 0)})
         print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
         shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"kernels": table}))

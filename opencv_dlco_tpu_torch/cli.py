@@ -22,6 +22,13 @@ Usage examples:
     python -m opencv_dlco_tpu_torch.cli sfm      --image1 a.bmp --image2 b.bmp --model vgg_generated_64.i --intrinsics 300,300,160,160
     python -m opencv_dlco_tpu_torch.cli slam     --root kitti --sequence 07 --model vgg_generated_64.i
     python -m opencv_dlco_tpu_torch.cli bench    --suite hinge
+    python -m opencv_dlco_tpu_torch.cli dist-info
+
+Several processes (one rank each): set DLCO_COORDINATOR=host:port,
+DLCO_NUM_PROCESSES and DLCO_PROCESS_ID on every process and pass
+``--distributed`` (DLCO_NUM_PROCESSES alone also joins the group; see
+parallel/distributed.py); ``slam --mesh dp[,mp]`` then distributes the
+SLAM back end over the ranks.
 """
 
 from __future__ import annotations
@@ -186,7 +193,14 @@ def cmd_slam(args):
     cfg = SlamConfig(n_keypoints=args.keypoints,
                      ba_window=args.ba_window,
                      loop_gap=args.loop_gap)
-    res = run_slam(frames, seq.intrinsics, model, cfg)
+    mesh = None
+    if args.mesh:
+        from .parallel.mesh import make_mesh
+
+        dp, _, mp = args.mesh.partition(",")
+        mesh = make_mesh(dp=int(dp), mp=int(mp) if mp else 1,
+                         device=args.device)
+    res = run_slam(frames, seq.intrinsics, model, cfg, mesh=mesh)
     out = {
         "n_frames": len(seq),
         "n_keyframes": int(res.keyframes.shape[0]),
@@ -210,6 +224,14 @@ def cmd_bench(args):
 
     bench.run(suite=args.suite, out_path=args.out or bench.DEFAULT_OUT,
               device=args.device)
+
+
+def cmd_dist_info(args):
+    from .parallel.distributed import distributed_init, host_info
+
+    multi = distributed_init(device=args.device)
+    print(json.dumps({"multi_process": multi, **host_info(args.device)},
+                     indent=2))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -356,6 +378,11 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--max-frames", type=int, default=None)
     sp.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
+    sp.add_argument("--mesh", default=None,
+                    help="distribute the back end over a dp[,mp] mesh of "
+                         "the process group's ranks: BA windows over dp, "
+                         "the pose graph's edge-sharded normal equations "
+                         "summed by all_reduce")
     sp.add_argument("--out", default=None,
                     help="write trajectory + eval JSON here")
     sp.set_defaults(fn=cmd_slam)
@@ -371,11 +398,29 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     sp.set_defaults(fn=cmd_bench)
+
+    sp = sub.add_parser("dist-info", help="show the process topology "
+                                          "(after distributed init)")
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (nccl) or cpu (gloo)")
+    sp.set_defaults(fn=cmd_dist_info)
+
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group from DLCO_COORDINATOR/"
+                        "DLCO_NUM_PROCESSES/DLCO_PROCESS_ID, or from a "
+                        "launcher's WORLD_SIZE/RANK/LOCAL_RANK/MASTER_ADDR/"
+                        "MASTER_PORT (torchrun), before running the command "
+                        "(DLCO_NUM_PROCESSES alone also joins)")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.distributed or os.environ.get("DLCO_NUM_PROCESSES"):
+        from .parallel.distributed import distributed_init
+
+        distributed_init(device=getattr(args, "device", "cuda"),
+                         detect=args.distributed)
     args.fn(args)
 
 

@@ -1,8 +1,7 @@
 """Multi-view bundle adjustment with Schur-complement reduction.
 
-Port of ``opencv_dlco_tpu/geometry/mvba.py`` (the single-device solver; the
-landmark-sharded variant belongs to the multi-device slice). M keyframe
-poses, N landmarks, K observations; per Levenberg-Marquardt step:
+Port of ``opencv_dlco_tpu/geometry/mvba.py``. M keyframe poses, N
+landmarks, K observations; per Levenberg-Marquardt step:
 
   1. per-observation residuals and Jacobian blocks J_c (2, 6) wrt the
      observing camera and J_p (2, 3) wrt the landmark (forward mode);
@@ -18,6 +17,13 @@ Every sum over observations is a deterministic segment sum
 float atomics on the card made the refined trajectory differ from run to
 run. The segment tables depend only on the index arrays and are built
 once per solve (``_Segments``).
+
+Distribution (``multi_view_ba_sharded``): landmarks and their
+observations shard over the mesh's ``dp`` axis (``shard_ba_problem``);
+each rank reduces its landmarks' contribution to (S, rhs), one all_reduce
+sums them (with the cost), every rank solves the 6M system, and the
+back-substitution stays local to each landmark shard; a second
+all_reduce sums the candidate's cost.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import data_axis, psum_packed
 from .jacobian import jac_fwd
 from .se3 import _mv, se3_exp
 from .segment import segment_sum, segment_table
@@ -155,6 +162,56 @@ def _solve_and_backsub(s, rhs, hpp_inv, bp, hcp_blocks, seg, cam_idx, m):
     return dc, dp
 
 
+def shard_ba_problem(points0, cam_idx, pt_idx, uv, weights,
+                     n_shards: int):
+    """Partition a BA problem by landmark into n_shards equal pieces
+    (host-side numpy, as in the JAX package).
+
+    Observations follow their landmark (each obs belongs to exactly one);
+    both landmarks and observations are padded per shard (padding obs get
+    weight 0 and point at local landmark 0 / camera 0). Returns a dict of
+    stacked per-shard arrays (leading axis: the shard) plus the landmark
+    count and the landmarks per shard."""
+    points0 = np.asarray(points0)
+    cam_idx = np.asarray(cam_idx)
+    pt_idx = np.asarray(pt_idx)
+    uv = np.asarray(uv)
+    weights = np.asarray(weights)
+    n = points0.shape[0]
+
+    # landmarks partitioned contiguously
+    n_pad = (-n) % n_shards
+    n_per = (n + n_pad) // n_shards
+    shard_of_landmark = np.minimum(np.arange(n + n_pad) // n_per,
+                                   n_shards - 1)
+    obs_shard = shard_of_landmark[pt_idx]
+    k_per = max(int(np.max(np.bincount(obs_shard, minlength=n_shards))), 1)
+
+    pts_sh = np.zeros((n_shards, n_per, 3), points0.dtype)
+    cam_sh = np.zeros((n_shards, k_per), np.int32)
+    loc_pt_sh = np.zeros((n_shards, k_per), np.int32)
+    uv_sh = np.zeros((n_shards, k_per, 2), uv.dtype)
+    w_sh = np.zeros((n_shards, k_per), weights.dtype)
+    tables = []
+    width = 0
+    for s in range(n_shards):
+        lms = np.arange(s * n_per, min((s + 1) * n_per, n))
+        pts_sh[s, :len(lms)] = points0[lms]
+        sel = np.flatnonzero(obs_shard == s)
+        cam_sh[s, :len(sel)] = cam_idx[sel]
+        loc_pt_sh[s, :len(sel)] = pt_idx[sel] - s * n_per
+        uv_sh[s, :len(sel)] = uv[sel]
+        w_sh[s, :len(sel)] = weights[sel]
+        tbl, wd = build_landmark_table(loc_pt_sh[s, :len(sel)], n_per)
+        tables.append(tbl)
+        width = max(width, wd)
+    table_sh = np.full((n_shards, n_per, width), -1, np.int32)
+    for s, tbl in enumerate(tables):
+        table_sh[s, :, :tbl.shape[1]] = tbl
+    return dict(points=pts_sh, cam_idx=cam_sh, pt_idx=loc_pt_sh, uv=uv_sh,
+                weights=w_sh, table=table_sh, n_landmarks=n, n_per=n_per)
+
+
 def multi_view_ba(r0, t0, points0, cam_idx, pt_idx, uv, table,
                   weights=None, *, n_iters: int = 10,
                   init_lambda: float = 1e-3,
@@ -162,6 +219,37 @@ def multi_view_ba(r0, t0, points0, cam_idx, pt_idx, uv, table,
     """Single-device multi-view BA. r0 (M, 3, 3), t0 (M, 3), points0
     (N, 3); per observation cam_idx, pt_idx (K,) and uv (K, 2); table
     (N, L) from build_landmark_table (numpy or tensor)."""
+    return _mvba(None, r0, t0, points0, cam_idx, pt_idx, uv, table,
+                 weights, n_iters, init_lambda, gauge_weight)
+
+
+def multi_view_ba_sharded(mesh, r0, t0, sharded, *, n_iters: int = 10,
+                          init_lambda: float = 1e-3,
+                          gauge_weight: float = 1e6) -> MVBAResult:
+    """Landmark-sharded multi-view BA over the mesh's ``dp`` axis.
+
+    ``sharded``: this rank's shard of shard_ba_problem's output — each of
+    its arrays at this rank's dp index (points (n_per, 3), cam_idx,
+    pt_idx, weights (k_per,), uv (k_per, 2), table (n_per, L)); r0, t0
+    are every rank's (replicated). Returns the replicated poses and this
+    rank's landmarks (n_per, 3)."""
+    dev = t0.device
+
+    def arr(name, dtype):
+        return torch.as_tensor(np.asarray(sharded[name]), dtype=dtype,
+                               device=dev)
+
+    return _mvba(mesh, r0, t0, arr("points", t0.dtype),
+                 arr("cam_idx", torch.int64), arr("pt_idx", torch.int64),
+                 arr("uv", t0.dtype), arr("table", torch.int64),
+                 arr("weights", t0.dtype), n_iters, init_lambda,
+                 gauge_weight)
+
+
+def _mvba(mesh, r0, t0, points0, cam_idx, pt_idx, uv, table, weights,
+          n_iters, init_lambda, gauge_weight) -> MVBAResult:
+    """The LM loop of multi_view_ba; with ``mesh``, the (S, rhs) system
+    and the costs are summed over dp."""
     dt, dev = points0.dtype, points0.device
     m = r0.shape[0]
     cam_idx = torch.as_tensor(cam_idx, device=dev).long()
@@ -175,7 +263,8 @@ def multi_view_ba(r0, t0, points0, cam_idx, pt_idx, uv, table,
 
     def cost_of(r, t, points):
         res = _residuals(r, t, points, cam_idx, pt_idx, uv)
-        return torch.sum(weights[:, None] * res * res)
+        cost = torch.sum(weights[:, None] * res * res)
+        return psum_packed(mesh, data_axis, cost)[0]
 
     r, t, points = r0, t0, points0
     lam = torch.tensor(init_lambda, dtype=dt, device=dev)
@@ -185,6 +274,7 @@ def multi_view_ba(r0, t0, points0, cam_idx, pt_idx, uv, table,
                                        pt_idx)
         s, rhs, hpp_inv, bp, hcp_b = _schur_terms(
             res, jc, jp, weights, table, seg, m, lam)
+        s, rhs, cost = psum_packed(mesh, data_axis, s, rhs, cost)
         s = s.clone()
         s[0, 0] = s[0, 0] + gauge_weight * eye6
         tr = torch.diagonal(s[ar, ar], dim1=-2, dim2=-1).sum(-1)

@@ -1,7 +1,6 @@
 """Pose-graph optimisation over SE(3) and Sim(3) relative-pose constraints.
 
-Port of ``opencv_dlco_tpu/geometry/posegraph.py`` (the single-device
-solvers; the edge-sharded ones belong to the multi-device slice).
+Port of ``opencv_dlco_tpu/geometry/posegraph.py``.
 Levenberg-Marquardt on the product manifold of M poses: each edge
 (i, j, Z_ij) contributes the residual
 
@@ -12,6 +11,13 @@ T_i and T_j. Edge blocks are summed into a dense (6M, 6M) normal system by
 deterministic segment sums (``segment.py``; the reference's ``.at[].add``);
 node 0 is gauge-fixed by a strong prior. Optional edge-level robust kernels
 (Huber, DCS) with a graduated non-convexity anneal, as in the reference.
+
+The ``*_sharded`` solvers are the distributed back end: edges split over
+the mesh's ``dp`` axis, each rank builds its part of the normal system
+and one all_reduce per Levenberg-Marquardt iteration sums the parts (a
+second one sums the candidate's cost); the dense solve and the update are
+replicated. A fixed edge partition and world size give the same bits in
+every run.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import data_axis, psum_packed
 from .jacobian import jac_fwd
 from .se3 import (_mv, se3_compose, se3_exp, se3_inverse, se3_log, so3_log)
 from .segment import segment_sum, segment_table
@@ -87,12 +94,10 @@ class PoseGraphResult(NamedTuple):
     cost_history: torch.Tensor
 
 
-def _assemble(res, ja, jb, weights, seg_h, seg_b, m, dof, gauge_weight):
-    """Dense normal system (H (dof m, dof m), b (dof m,)) of the edge
-    blocks, with the gauge prior on node 0. The blocks are summed by the
-    segment tables of ``_edge_segments`` (a fixed order, so the same
-    inputs give the same system in every run)."""
-    dt, dev = res.dtype, res.device
+def _assemble(res, ja, jb, weights, seg_h, seg_b):
+    """The edge blocks' normal system: H as (m * m, dof, dof) blocks and
+    b (m, dof), summed by the segment tables of ``_edge_segments`` (a
+    fixed order, so the same inputs give the same system in every run)."""
     w = weights[:, None, None]
     haa = w * torch.einsum("eri,erj->eij", ja, ja)
     hbb = w * torch.einsum("eri,erj->eij", jb, jb)
@@ -100,12 +105,25 @@ def _assemble(res, ja, jb, weights, seg_h, seg_b, m, dof, gauge_weight):
     ba = -torch.einsum("e,eri,er->ei", weights, ja, res)
     bb = -torch.einsum("e,eri,er->ei", weights, jb, res)
     blocks = torch.cat([haa, hbb, hab, hab.transpose(-1, -2)])
-    h = segment_sum(blocks, seg_h)
-    h[0] = h[0] + gauge_weight * torch.eye(dof, dtype=dt, device=dev)
-    b = segment_sum(torch.cat([ba, bb]), seg_b)
+    return (segment_sum(blocks, seg_h),
+            segment_sum(torch.cat([ba, bb]), seg_b))
+
+
+def _dense(h, b, m, dof, gauge_weight):
+    """(H (dof m, dof m), b (dof m,)) with the gauge prior on node 0."""
+    h[0] = h[0] + gauge_weight * torch.eye(dof, dtype=h.dtype,
+                                           device=h.device)
     hd = h.reshape(m, m, dof, dof).permute(0, 2, 1, 3).reshape(dof * m,
                                                               dof * m)
     return hd, b.reshape(-1)
+
+
+def _edge_block(mesh, e: int):
+    """This dp rank's contiguous block of E edges (ceil(E / dp) a rank, the
+    last ones short) and that block length."""
+    per = -(-e // mesh.shape[data_axis])
+    k = mesh.axis_index(data_axis)
+    return slice(min(k * per, e), min((k + 1) * per, e)), per
 
 
 def _edge_segments(edges_i, edges_j, m):
@@ -120,15 +138,22 @@ def _edge_segments(edges_i, edges_j, m):
 
 def _lm(state0, residuals, apply_dx, weights, edges_i, edges_j, m, dof,
         n_iters, init_lambda, gauge_weight, robust, robust_delta,
-        gnc_iters):
-    """The LM loop shared by the SE(3) and Sim(3) solvers."""
+        gnc_iters, mesh=None, per=0):
+    """The LM loop shared by the SE(3) and Sim(3) solvers. With ``mesh``
+    the edges are this rank's block (``per`` the longest block) and the
+    normal system and costs are summed over dp."""
     dt, dev = weights.dtype, weights.device
     rho_fn = _ROBUST.get(robust)
     delta2 = None
     if robust != "none":
         res0 = residuals(state0, None)
-        delta2 = _resolve_delta2(weights * torch.sum(res0 * res0, 1),
-                                 weights, robust_delta)
+        chi2_0, w_all = weights * torch.sum(res0 * res0, 1), weights
+        if mesh is not None:
+            # the median over every real edge: blocks padded with weight 0
+            pad = per - chi2_0.shape[0]
+            chi2_0, w_all = (mesh.all_gather(torch.cat(
+                [x, x.new_zeros(pad)]), data_axis) for x in (chi2_0, w_all))
+        delta2 = _resolve_delta2(chi2_0, w_all, robust_delta)
 
     def cost_and_weights(res, d2_k):
         chi2 = weights * torch.sum(res * res, 1)
@@ -141,17 +166,21 @@ def _lm(state0, residuals, apply_dx, weights, edges_i, edges_j, m, dof,
     seg_h, seg_b = _edge_segments(edges_i, edges_j, m)
     state = state0
     lam = torch.tensor(init_lambda, dtype=dt, device=dev)
-    costs = [cost_and_weights(residuals(state0, None), delta2)[0]]
+    cost0, _ = cost_and_weights(residuals(state0, None), delta2)
+    costs = [psum_packed(mesh, data_axis, cost0)[0]]
     for k in range(n_iters):
         d2_k = delta2 * _gnc_scale(k, gnc_iters) if rho_fn else None
         res, j = residuals(state, True)
         cost, w_eff = cost_and_weights(res, d2_k)
-        hd, b = _assemble(res, j[..., :dof], j[..., dof:], w_eff, seg_h,
-                          seg_b, m, dof, gauge_weight)
+        h, b = _assemble(res, j[..., :dof], j[..., dof:], w_eff, seg_h,
+                         seg_b)
+        h, b, cost = psum_packed(mesh, data_axis, h, b, cost)
+        hd, b = _dense(h, b, m, dof, gauge_weight)
         hd = hd + lam * torch.diag(torch.clamp(torch.diagonal(hd), min=1e-8))
         dx = torch.linalg.solve(hd + 1e-9 * eye, b[:, None])[:, 0]
         new = apply_dx(state, dx.reshape(m, dof))
         new_cost, _ = cost_and_weights(residuals(new, None), d2_k)
+        new_cost = psum_packed(mesh, data_axis, new_cost)[0]
         accept = new_cost < cost
         state = tuple(torch.where(accept, a, s) for a, s in zip(new, state))
         lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0),
@@ -178,11 +207,39 @@ def optimize_pose_graph(r0, t0, edges_i, edges_j, r_z, t_z,
     "dcs", IRLS weights recomputed at every linearization; robust_delta
     <= 0 picks the width from the median initial edge chi^2; gnc_iters
     anneals the width over the first iterations."""
+    return _se3_graph(None, r0, t0, edges_i, edges_j, r_z, t_z, weights,
+                      n_iters, init_lambda, gauge_weight, robust,
+                      robust_delta, gnc_iters)
+
+
+def optimize_pose_graph_sharded(mesh, r0, t0, edges_i, edges_j, r_z, t_z,
+                                weights=None, *, n_iters: int = 15,
+                                init_lambda: float = 1e-4,
+                                gauge_weight: float = 1e6,
+                                robust: str = "none",
+                                robust_delta: float = 0.0,
+                                gnc_iters: int = 0) -> PoseGraphResult:
+    """optimize_pose_graph with the edges split over the mesh's dp axis.
+    Every rank passes the whole graph (as the JAX package's jitted
+    solver takes it) and linearizes its own block of edges; the result is
+    the same on every rank."""
+    return _se3_graph(mesh, r0, t0, edges_i, edges_j, r_z, t_z, weights,
+                      n_iters, init_lambda, gauge_weight, robust,
+                      robust_delta, gnc_iters)
+
+
+def _se3_graph(mesh, r0, t0, edges_i, edges_j, r_z, t_z, weights, n_iters,
+               init_lambda, gauge_weight, robust, robust_delta, gnc_iters):
     dev = t0.device
     m = r0.shape[0]
     ei, ej = _edges(edges_i, edges_j, dev)
     if weights is None:
         weights = torch.ones(ei.shape[0], dtype=t0.dtype, device=dev)
+    per = 0
+    if mesh is not None:
+        blk, per = _edge_block(mesh, ei.shape[0])
+        ei, ej, r_z, t_z, weights = (x[blk] for x in
+                                     (ei, ej, r_z, t_z, weights))
     zero = torch.zeros((ei.shape[0], 12), dtype=t0.dtype, device=dev)
 
     def residuals(state, with_jac):
@@ -198,7 +255,7 @@ def optimize_pose_graph(r0, t0, edges_i, edges_j, r_z, t_z,
 
     (r, t), costs = _lm((r0, t0), residuals, apply_dx, weights, ei, ej, m, 6,
                         n_iters, init_lambda, gauge_weight, robust,
-                        robust_delta, gnc_iters)
+                        robust_delta, gnc_iters, mesh, per)
     return PoseGraphResult(r=r, t=t, cost_history=costs)
 
 
@@ -249,6 +306,31 @@ def optimize_pose_graph_sim3(r0, t0, edges_i, edges_j, r_z, t_z,
     scale drift; node 0 is gauge-fixed in all 7 dof. ``s_z`` (E,) are the
     edges' relative-scale measurements (None: all 1). The returned (r, t)
     have the scale corrections folded in; ``s`` is for diagnostics."""
+    return _sim3_graph(None, r0, t0, edges_i, edges_j, r_z, t_z, weights,
+                       s_z, n_iters, init_lambda, gauge_weight, scale_weight,
+                       robust, robust_delta, gnc_iters)
+
+
+def optimize_pose_graph_sim3_sharded(mesh, r0, t0, edges_i, edges_j, r_z,
+                                     t_z, weights=None, s_z=None, *,
+                                     n_iters: int = 20,
+                                     init_lambda: float = 1e-4,
+                                     gauge_weight: float = 1e6,
+                                     scale_weight: float = 0.1,
+                                     robust: str = "none",
+                                     robust_delta: float = 0.0,
+                                     gnc_iters: int = 0
+                                     ) -> Sim3PoseGraphResult:
+    """optimize_pose_graph_sim3 with the edges split over the dp axis
+    (see optimize_pose_graph_sharded)."""
+    return _sim3_graph(mesh, r0, t0, edges_i, edges_j, r_z, t_z, weights,
+                       s_z, n_iters, init_lambda, gauge_weight, scale_weight,
+                       robust, robust_delta, gnc_iters)
+
+
+def _sim3_graph(mesh, r0, t0, edges_i, edges_j, r_z, t_z, weights, s_z,
+                n_iters, init_lambda, gauge_weight, scale_weight, robust,
+                robust_delta, gnc_iters):
     dev, dt = t0.device, t0.dtype
     m = r0.shape[0]
     ei, ej = _edges(edges_i, edges_j, dev)
@@ -258,7 +340,12 @@ def optimize_pose_graph_sim3(r0, t0, edges_i, edges_j, r_z, t_z,
     if s_z is None:
         s_z = torch.ones(e, dtype=dt, device=dev)
     s_z = torch.as_tensor(s_z, dtype=dt, device=dev)[:, None]
-    zero = torch.zeros((e, 14), dtype=dt, device=dev)
+    per = 0
+    if mesh is not None:
+        blk, per = _edge_block(mesh, e)
+        ei, ej, r_z, t_z, weights, s_z = (x[blk] for x in
+                                          (ei, ej, r_z, t_z, weights, s_z))
+    zero = torch.zeros((ei.shape[0], 14), dtype=dt, device=dev)
     sw = float(scale_weight)
 
     def residuals(state, with_jac):
@@ -277,5 +364,5 @@ def optimize_pose_graph_sim3(r0, t0, edges_i, edges_j, r_z, t_z,
     s0 = torch.ones((m, 1), dtype=dt, device=dev)
     (r, t, s), costs = _lm((r0, t0, s0), residuals, apply_dx, weights, ei,
                            ej, m, 7, n_iters, init_lambda, gauge_weight,
-                           robust, robust_delta, gnc_iters)
+                           robust, robust_delta, gnc_iters, mesh, per)
     return Sim3PoseGraphResult(r=r, t=t, s=s[:, 0], cost_history=costs)

@@ -1,7 +1,7 @@
 """Hyperparameter sweep engines: each grid trains as one loop.
 
 Port of ``opencv_dlco_tpu/parallel/sweep.py`` (``run_pr_sweep``,
-``run_pj_sweep``) on a single device. The reference's sweeps are sequential
+``run_pj_sweep``). The reference's sweeps are sequential
 runs driven by bash (workspace/04-prlearn.sh, 08-pjlearn.sh); here the
 whole (mu, gamma) grid is the leading S axis of the batched solvers
 (models/pr_rda.py, models/pj_rda.py). PR entries share each step's sampled
@@ -14,6 +14,13 @@ per-run artifacts exactly like single runs. The stacked solver state, the
 generator and the per-combo positions checkpoint into a sidecar
 ``*-sweep-ckpt.h5`` every ``ckpt_every`` log periods, and an interrupted
 sweep resumes from it with identical final artifacts.
+
+Multi-process runs (a process group of more than one rank) run the grid
+on every rank, write artifacts from the primary only, and switch the
+sidecar to utils/checkpoint.ShardedSweepCheckpoint: every process writes
+its own combo-range shard of the stacked state to its own file
+(double-buffered slots; no primary-writer IO funnel) and every process
+resumes from the assembled newest common wave.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ..models.pr_rda import PRState, pr_init, pr_train_chunk, pr_validate
 from ..models.select import compute_pj_stats_splits, selected_pr_geometry
 from ..utils.checkpoint import (
     RunInterrupted,
+    ShardedSweepCheckpoint,
     load_solver_state,
     save_solver_state,
 )
@@ -47,7 +55,7 @@ from ..utils.configs import (
 )
 from ..utils.logs import MetricLogger
 from ..utils.memory import check_device_budget, nbytes
-from .distributed import is_primary
+from .distributed import is_primary, process_count, process_index
 
 SweepInterrupted = RunInterrupted
 
@@ -84,8 +92,9 @@ def _completed_sweep_results(ws, subdir: str, runs, combos, n_iter: int,
     """Stage-level idempotence (04-prlearn.sh:17-22, 08-pjlearn.sh:18-21):
     when every combo artifact carries the done marker for this budget and
     no resume sidecar is pending, return per-combo summaries instead of
-    retraining; any mismatch -> None."""
-    if os.path.exists(sidecar):
+    retraining; any mismatch -> None. Multi-process runs always train
+    (their ranks must run the same program)."""
+    if os.path.exists(sidecar) or process_count() > 1:
         return None
     results = []
     for run, c in zip(runs, combos):
@@ -109,6 +118,15 @@ def _completed_sweep_results(ws, subdir: str, runs, combos, n_iter: int,
         except OSError:
             return None
     return results
+
+
+def _sharded_sidecar(ws, subdir: str, label: str, s: int):
+    """The per-process sidecar of a multi-process sweep (None for one
+    process, which keeps the one-file sidecar)."""
+    if process_count() <= 1:
+        return None
+    return ShardedSweepCheckpoint(ws.path(subdir, f"{label}-sweep-ckpt"),
+                                  process_index(), process_count(), s)
 
 
 def run_pr_sweep(ws, ds: str, grid: PRSweepGrid, base: PRLearnConfig,
@@ -160,7 +178,16 @@ def run_pr_sweep(ws, ds: str, grid: PRSweepGrid, base: PRLearnConfig,
     primary = is_primary()
     done_logs = 0
     resume = None
-    if primary and os.path.exists(ckpt_path):
+    sck = _sharded_sidecar(ws, "pr-learn", ds, s)
+    if sck is not None:
+        loaded = sck.load(PRState, signature, device=dev)
+        if loaded is not None:
+            st_l, gen_l, arrs, done_logs = loaded
+            resume = (st_l, gen_l)
+            best_obj = torch.from_numpy(arrs["best_obj"]).to(dev)
+            best_w = torch.from_numpy(arrs["best_w"]).to(dev)
+            row_counts = np.asarray(arrs["row_counts"])
+    elif primary and os.path.exists(ckpt_path):
         with ArtifactStore(ckpt_path, "r") as ck:
             if ck.get_meta("signature") == signature:
                 resume = load_solver_state(ck, PRState, device=dev)
@@ -197,13 +224,18 @@ def run_pr_sweep(ws, ds: str, grid: PRSweepGrid, base: PRLearnConfig,
                 stores[c].truncate_rows("w", int(row_counts[si]))
 
         def save_ckpt(li):
+            arrays = {"best_obj": best_obj.cpu().numpy(),
+                      "best_w": best_w.cpu().numpy(),
+                      "row_counts": row_counts}
+            if sck is not None:
+                sck.save(state, gen, arrays, signature, li + 1)
+                return
             with writer_store(ckpt_path, "a") as ck:
                 save_solver_state(ck, state, gen,
                                   extra={"completed_logs": li + 1},
                                   compression=0)
-                ck.write("best_obj", best_obj.cpu().numpy(), compression=0)
-                ck.write("best_w", best_w.cpu().numpy(), compression=0)
-                ck.write("row_counts", row_counts, compression=0)
+                for name, arr in arrays.items():
+                    ck.write(name, arr, compression=0)
                 ck.set_meta("signature", signature)
 
         t0 = time.perf_counter()
@@ -249,7 +281,9 @@ def run_pr_sweep(ws, ds: str, grid: PRSweepGrid, base: PRLearnConfig,
             results.append(dict(mu=c[0], gamma=c[1], obj=float(obj_np[si]),
                                 nnz=int(nnz_np[si]), model=stores[c].path))
         results.sort(key=lambda r: r["obj"])
-        if primary and os.path.exists(ckpt_path):
+        if sck is not None:
+            sck.cleanup()
+        elif primary and os.path.exists(ckpt_path):
             remove_artifact(ckpt_path)
         return results
     finally:
@@ -307,7 +341,16 @@ def run_pj_sweep(ws, unproj_path: str, grid: PJSweepGrid,
     primary = is_primary()
     done_logs = 0
     resume = None
-    if primary and os.path.exists(ckpt_path):
+    sck = _sharded_sidecar(ws, "pj-learn", run_label, s)
+    if sck is not None:
+        loaded = sck.load(PJState, signature, device=dev)
+        if loaded is not None:
+            st_l, gen_l, arrs, done_logs = loaded
+            resume = (st_l, gen_l)
+            best_obj = torch.from_numpy(arrs["best_obj"]).to(dev)
+            best_w = torch.from_numpy(arrs["best_w"]).to(dev)
+            best_a = torch.from_numpy(arrs["best_a"]).to(dev)
+    elif primary and os.path.exists(ckpt_path):
         with ArtifactStore(ckpt_path, "r") as ck:
             if ck.get_meta("signature") == signature:
                 resume = load_solver_state(ck, PJState, device=dev)
@@ -332,13 +375,18 @@ def run_pj_sweep(ws, unproj_path: str, grid: PJSweepGrid,
                              device=dev)
 
     def save_ckpt(li):
+        arrays = {"best_obj": best_obj.cpu().numpy(),
+                  "best_w": best_w.cpu().numpy(),
+                  "best_a": best_a.cpu().numpy()}
+        if sck is not None:
+            sck.save(states, gen, arrays, signature, li + 1)
+            return
         with writer_store(ckpt_path, "a") as ck:
             save_solver_state(ck, states, gen,
                               extra={"completed_logs": li + 1},
                               compression=0)
-            ck.write("best_obj", best_obj.cpu().numpy(), compression=0)
-            ck.write("best_w", best_w.cpu().numpy(), compression=0)
-            ck.write("best_a", best_a.cpu().numpy(), compression=0)
+            for name, arr in arrays.items():
+                ck.write(name, arr, compression=0)
             ck.set_meta("signature", signature)
 
     log = MetricLogger(jsonl_path=ws.path("pj-learn", "logging",
@@ -389,7 +437,9 @@ def run_pj_sweep(ws, unproj_path: str, grid: PJSweepGrid,
                                 dim=stats["dim"], auc=stats["auc"],
                                 fpr95=stats["fpr95"]))
         results.sort(key=lambda r: r.get("fpr95", np.inf))
-        if primary and os.path.exists(ckpt_path):
+        if sck is not None:
+            sck.cleanup()
+        elif primary and os.path.exists(ckpt_path):
             remove_artifact(ckpt_path)
         return results
     finally:

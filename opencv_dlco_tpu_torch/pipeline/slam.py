@@ -47,7 +47,9 @@ from ..geometry.ba import two_view_ba
 from ..geometry.epipolar import ransac_essential, recover_pose
 from ..geometry.mvba import build_landmark_table, multi_view_ba
 from ..geometry.posegraph import (optimize_pose_graph,
-                                  optimize_pose_graph_sim3)
+                                  optimize_pose_graph_sharded,
+                                  optimize_pose_graph_sim3,
+                                  optimize_pose_graph_sim3_sharded)
 from ..geometry.triangulate import triangulate_points
 from ..models.vgg import VGGDescriptor
 from ..ops.detect import detect_corners, extract_patches
@@ -1531,7 +1533,8 @@ def _extrinsics(result: SlamResult, frame: int):
 
 
 def windowed_ba(result: SlamResult, feats, intrinsics, cfg: SlamConfig,
-                device="cuda") -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+                device="cuda",
+                mesh=None) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
     """Refine local geometry per window with multi-view BA; return refined
     odometry edge measurements {k: (R, t)} = i_T_j for edge (k, k+1).
 
@@ -1547,6 +1550,12 @@ def windowed_ba(result: SlamResult, feats, intrinsics, cfg: SlamConfig,
     observations carry weight 0 and padding landmarks no observation of
     weight, so the per-window result is the same without them).
 
+    With ``mesh``, windows are dealt to the dp ranks in a fixed order
+    (window i to dp rank i mod dp: map blocks per host, the JAX package's
+    dp split of its vmapped window batch); each rank solves its windows
+    and one all_gather over dp shares the refined edges, applied in window
+    order as on one device.
+
     Measured caveat (reference): on LOW-PARALLAX consecutive frames the
     window BA converges to sub-pixel reprojection yet its relative
     translation DIRECTIONS are no better than the two-view estimates; the
@@ -1561,9 +1570,14 @@ def windowed_ba(result: SlamResult, feats, intrinsics, cfg: SlamConfig,
     tracks = build_tracks(result.pairs)
     tr_start, tr_len, tr_off, tr_kps = _tracks_to_arrays(tracks)
     edges: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+    by_window: Dict[int, list] = {}
 
     starts = list(range(0, max(1, n_frames - 2), cfg.ba_stride))
-    for a in starts:
+    n_dp, dp_idx = ((mesh.shape["dp"], mesh.axis_index("dp"))
+                    if mesh is not None else (1, 0))
+    for wi, a in enumerate(starts):
+        if wi % n_dp != dp_idx:
+            continue                    # another dp rank's window
         b = min(a + cfg.ba_window, n_frames)
         if b - a < 3:
             continue
@@ -1643,9 +1657,39 @@ def windowed_ba(result: SlamResult, feats, intrinsics, cfg: SlamConfig,
             for k in range(m - 1))
         base_ba = sum(float(np.linalg.norm(t)) for _, t in rel)
         s = base_in / base_ba if base_ba > 1e-12 else 1.0
-        for k, (r_z, t_z) in enumerate(rel):
-            edges[a + k] = (r_z, t_z * s)
+        by_window[wi] = [(r_z, t_z * s) for r_z, t_z in rel]
+    if mesh is not None:
+        by_window = _gather_windows(mesh, by_window, len(starts),
+                                    cfg.ba_window - 1)
+    for wi in sorted(by_window):
+        for k, edge in enumerate(by_window[wi]):
+            edges[starts[wi] + k] = edge
     return edges
+
+
+def _gather_windows(mesh, by_window, n_windows: int, max_edges: int):
+    """Every dp rank's refined window edges on every rank: one all_gather
+    over dp of an (n_windows, 1 + 12 max_edges) table per rank (the edge
+    count, then each edge's R and t; f64 holds the f32 values exactly),
+    each window read from its owner's table."""
+    n_dp = mesh.shape["dp"]
+    table = np.zeros((n_windows, 1 + 12 * max_edges))
+    for wi, rel in by_window.items():
+        table[wi, 0] = len(rel)
+        for k, (r_z, t_z) in enumerate(rel):
+            table[wi, 1 + 12 * k:13 + 12 * k] = np.concatenate(
+                [np.ravel(r_z), t_z])
+    every = mesh.all_gather(
+        torch.from_numpy(table).to(mesh.device), "dp").cpu().numpy()
+    out = {}
+    for wi in range(n_windows):
+        row = every[(wi % n_dp) * n_windows + wi]
+        if row[0]:
+            out[wi] = [(row[1 + 12 * k:10 + 12 * k].reshape(3, 3)
+                        .astype(np.float32),
+                        row[10 + 12 * k:13 + 12 * k].astype(np.float32))
+                       for k in range(int(row[0]))]
+    return out
 
 
 def _loop_edge_chi2(result: SlamResult, loop_edges, loop_weight: float
@@ -1679,13 +1723,15 @@ def refine_with_pose_graph(result: SlamResult,
                            gnc_iters: int = 8,
                            extra_edges=None,
                            extra_weight: float = 1.0,
-                           device="cuda") -> SlamResult:
+                           device="cuda", mesh=None) -> SlamResult:
     """Pose-graph polish on ``device``: odometry edges from the chained
     pairs (optionally overridden by windowed-BA refinements) plus
     (i, j, R_ij, t_ij[, s_ij]) loop closures. ``sim3=True`` optimises over
     Sim(3) — per-node scale states absorb monocular scale drift, which
     SE(3) edges structurally cannot (use whenever loop closures are
-    present).
+    present). With ``mesh``, the edges split over the dp axis and the
+    normal system is summed by one all_reduce per LM iteration (the
+    distributed back end of BASELINE config 5).
 
     ``robust``: edge-level robust kernel ("huber"/"dcs") engaged only when
     loop edges are present. Its width is calibrated on the LOOP edges'
@@ -1735,7 +1781,14 @@ def refine_with_pose_graph(result: SlamResult,
         robust_kwargs = dict(robust=robust,
                              robust_delta=float(np.sqrt(delta2)),
                              gnc_iters=min(gnc_iters, max(n_iters - 4, 0)))
-    solver = optimize_pose_graph_sim3 if sim3 else optimize_pose_graph
+    if mesh is not None:
+        base = (optimize_pose_graph_sim3_sharded if sim3
+                else optimize_pose_graph_sharded)
+
+        def solver(*a, **kw):
+            return base(mesh, *a, **kw)
+    else:
+        solver = optimize_pose_graph_sim3 if sim3 else optimize_pose_graph
     sim3_kwargs = {"s_z": _f32(device, sz)[0]} if sim3 else {}
     out = solver(
         *_f32(device, result.rotations, result.translations),
@@ -1750,7 +1803,7 @@ def refine_with_pose_graph(result: SlamResult,
 
 def run_back_end(odo: SlamResult, feats, intrinsics, cfg: SlamConfig,
                  key=None, loop_stats: Optional[dict] = None,
-                 device="cuda") -> SlamResult:
+                 device="cuda", mesh=None) -> SlamResult:
     """Keyframes -> loop detection -> windowed BA -> pose graph.
 
     When odometry produced a scale backbone, the WHOLE back end runs on
@@ -1759,6 +1812,9 @@ def run_back_end(odo: SlamResult, feats, intrinsics, cfg: SlamConfig,
     their clean depths, windowed BA refines node poses, the pose graph
     solves over M = #nodes, and intermediate frames are re-hung off the
     optimized nodes — back-end cost scales with keyframes, not frames.
+    With ``mesh``, windowed BA and the pose graph distribute over its dp
+    axis (windowed_ba, refine_with_pose_graph); the rest runs on every
+    rank.
     """
     if key is None:
         key = DeviceDraws(1, device)
@@ -1778,7 +1834,7 @@ def run_back_end(odo: SlamResult, feats, intrinsics, cfg: SlamConfig,
                                        intrinsics, node_cfg, key=key,
                                        stats=loop_stats, device=device)
         overrides = windowed_ba(node_traj, feats_n, intrinsics, node_cfg,
-                                device=device)
+                                device=device, mesh=mesh)
         node_traj.keyframes = kf_local
         node_traj.loop_edges = loops_n
         sim3_n = cfg.use_sim3 and len(loops_n) > 0
@@ -1793,7 +1849,7 @@ def run_back_end(odo: SlamResult, feats, intrinsics, cfg: SlamConfig,
             # the very scale deformation the closures exist to apply
             # (measured: +0.03x span ATE on the 128-frame drift scene)
             extra_edges=None if sim3_n else odo.skip_edges,
-            extra_weight=cfg.odo_skip_weight, device=device)
+            extra_weight=cfg.odo_skip_weight, device=device, mesh=mesh)
         rs_all, ts_all = _hang_intermediates(
             refined_n.rotations, refined_n.translations, nodes, odo.pairs)
         return SlamResult(
@@ -1806,7 +1862,8 @@ def run_back_end(odo: SlamResult, feats, intrinsics, cfg: SlamConfig,
     kf = select_keyframes(odo, cfg)
     loops = detect_loop_closures(feats, kf, odo, intrinsics, cfg, key=key,
                                  stats=loop_stats, device=device)
-    overrides = windowed_ba(odo, feats, intrinsics, cfg, device=device)
+    overrides = windowed_ba(odo, feats, intrinsics, cfg, device=device,
+                            mesh=mesh)
     odo.keyframes = kf
     odo.loop_edges = loops
     sim3_f = cfg.use_sim3 and len(loops) > 0
@@ -1821,17 +1878,20 @@ def run_back_end(odo: SlamResult, feats, intrinsics, cfg: SlamConfig,
                                   extra_edges=None if sim3_f
                                   else odo.skip_edges,
                                   extra_weight=cfg.odo_skip_weight,
-                                  device=device)
+                                  device=device, mesh=mesh)
 
 
 def run_slam(frames, intrinsics, model: VGGDescriptor,
              cfg: Optional[SlamConfig] = None, key=None,
-             device=None) -> SlamResult:
+             device=None, mesh=None) -> SlamResult:
     """Full pipeline: odometry -> keyframes -> loop detection -> windowed
     BA -> pose graph. Returns the refined trajectory with the keyframe set
     and detected loop edges attached. Runs on the model's device unless
     ``device`` says otherwise; ``key`` is the draw source (DeviceDraws(0)
-    on that device when None)."""
+    on that device when None). With ``mesh``, every rank runs the front
+    end and the back end distributes: BA windows over dp (map blocks per
+    host) and the pose graph's edges over dp, its normal system summed by
+    all_reduce (BASELINE config 5)."""
     cfg = cfg or SlamConfig()
     device = _resolve_device(device, model)
     if key is None:
@@ -1841,7 +1901,7 @@ def run_slam(frames, intrinsics, model: VGGDescriptor,
     odo = run_odometry(frames, intrinsics, model, cfg, key=k_odo,
                        feats=feats, device=device)
     return run_back_end(odo, feats, intrinsics, cfg, key=k_back,
-                        device=device)
+                        device=device, mesh=mesh)
 
 
 def ate_rmse(traj: np.ndarray, gt: np.ndarray,

@@ -1,4 +1,4 @@
-"""The 11-stage DLCO workflow on one CUDA device.
+"""The 11-stage DLCO workflow on CUDA devices.
 
 Port of ``opencv_dlco_tpu/pipeline/stages.py``: every stage is a method
 over a Workspace directory with the reference's artifact layout and resume
@@ -10,6 +10,8 @@ package writes):
     dataset/{ds}.h5                  Indices + Patches        (stage 1)
     filters.h5                       Ring/PR params + filters (stage 2)
     distances/{ds}-dist.h5           Label + Distance         (stage 3)
+    distances/{ds}-dist.shards/      the same, multi-writer   (stage 3,
+                                     several processes; data/shard_store.py)
     pr-learn/{run}.h5 + logging/     w histories + metrics    (stage 4)
     distances/{ds}-{pr}-unproj.h5    signed diff vectors      (stage 7)
     pj-learn/{run}.h5 + logging/     W, A + metrics           (stage 8)
@@ -27,6 +29,12 @@ import numpy as np
 import torch
 
 from ..data.brown import convert_brown_patches, pair_labels
+from ..data.shard_store import (
+    ShardedArrayStore,
+    is_sharded_store,
+    open_for_read,
+    shard_rows,
+)
 from ..data.store import (
     ArtifactStore,
     parse_model_ref,
@@ -46,7 +54,11 @@ from ..ops.pair_distance import ring_distances, unprojected_diffs
 from ..ops.pair_distance_fused import TF, TK, ring_distances_fused
 from ..ops.patch_transform import batch_patch_transform
 from ..ops.pool_regions import build_filter_bank
-from ..parallel.distributed import is_primary
+from ..parallel.distributed import (
+    is_primary,
+    process_count,
+    process_index,
+)
 from ..utils.checkpoint import (
     RunInterrupted,
     is_lock_error,
@@ -150,20 +162,40 @@ class Workspace:
             return st.read("PRParams")
 
     def dist_path(self, ds: str) -> str:
-        """Stage-3 output for ``ds``."""
-        return os.path.join(self.root, "distances", f"{ds}-dist.h5")
+        """Stage-3 output for ``ds``: the single-writer .h5 if present,
+        else the multi-writer sharded store (whichever compdist produced
+        under the process topology; readers are format-agnostic through
+        data/shard_store.open_for_read)."""
+        h5 = os.path.join(self.root, "distances", f"{ds}-dist.h5")
+        if os.path.exists(h5):
+            return h5
+        shards = os.path.join(self.root, "distances", f"{ds}-dist.shards")
+        if is_sharded_store(shards):
+            return shards
+        return h5   # canonical (an error surfaces at open)
 
     # -- stage 3: full ring-distance precompute ---------------------------
 
-    def compdist(self, ds: str) -> str:
+    def compdist(self, ds: str, sharded: Optional[bool] = None) -> str:
         """Per-pair ring distances (reference: 03-compdist.sh,
         src/comp-fulldists.cpp), streamed to a single-writer HDF5 file
-        block by block."""
+        block by block.
+
+        ``sharded`` (default: on iff the process group has more than one
+        rank) switches to the multi-writer store (data/shard_store.py):
+        every process computes and writes ITS OWN chunk-aligned row range
+        of the distance matrix concurrently. Downstream readers are
+        format-agnostic through open_for_read."""
+        if sharded is None:
+            sharded = process_count() > 1
         n_rings = self.pool_cfg.n_rings
         with ArtifactStore(self.path("dataset", f"{ds}.h5"), "r") as st:
             indices = st.read("Indices")
             patches = st.read("Patches")
         n_pairs = indices.shape[0]
+        if sharded:
+            return self._compdist_sharded(ds, indices, patches, n_pairs,
+                                          n_rings)
         out = self.path("distances", f"{ds}-dist.h5")
         if os.path.exists(out):
             st = _open_if_sound(out)
@@ -218,6 +250,40 @@ class Workspace:
             if bar:
                 bar.update((e - lo) / max(hi - lo, 1))
 
+    def _compdist_sharded(self, ds: str, indices, patches, n_pairs: int,
+                          n_rings: int) -> str:
+        """Multi-writer stage 3: each process owns a chunk-aligned row
+        range (chunks of pair_block rows, so its blocks are the
+        single-writer path's blocks) and writes it concurrently into the
+        sharded store. Completion = every writer's done marker; the
+        filesystem barrier waits for all of them."""
+        out = self.path("distances", f"{ds}-dist.shards")
+        pid, n_proc = process_index(), process_count()
+        st = ShardedArrayStore(out)
+        if (st.exists("Distance") and st.shape("Distance") ==
+                (n_pairs, n_rings) and st.all_done(n_proc)):
+            return out
+        st.create("Label", (n_pairs, 1), np.int32, self.pair_block)
+        st.create("Distance", (n_pairs, n_rings), np.float32,
+                  self.pair_block)
+        lo, hi = shard_rows(n_pairs, self.pair_block, pid, n_proc)
+        labels = pair_labels(indices).reshape(-1, 1).astype(np.int32)
+        st.write_rows("Label", lo, labels[lo:hi])
+        self._dist_rows(st, indices, patches, lo, hi,
+                        self._bar() if pid == 0 else None)
+        st.mark_done(pid, {"rows": [int(lo), int(hi)]})
+        # shared-filesystem contract: the stage's output is usable only
+        # when every writer has landed
+        deadline = time.time() + 600.0
+        while not st.all_done(n_proc):
+            if time.time() > deadline:
+                missing = [w for w in range(n_proc) if not os.path.exists(
+                    os.path.join(out, "_meta", f"done-{w}.json"))]
+                raise TimeoutError(
+                    f"compdist shards incomplete after 600s: {missing}")
+            time.sleep(0.2)
+        return out
+
     # -- shared loading for the learners ----------------------------------
 
     def _load_split(self, dist_path: str, train_frac: float, seed: int):
@@ -225,8 +291,9 @@ class Workspace:
 
         Rows stream from HDF5 in chunks and scatter into the four
         preallocated host split arrays; the same numpy shuffle as the JAX
-        package, so both packages train on identical splits."""
-        with ArtifactStore(dist_path, "r") as st:
+        package, so both packages train on identical splits. ``dist_path``
+        is an artifact or a sharded store (open_for_read)."""
+        with open_for_read(dist_path) as st:
             labels = st.read("Label").reshape(-1)
             n_rows, n_feat = st.shape("Distance")
             pos_idx = np.flatnonzero(labels == 1)

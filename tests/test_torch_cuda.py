@@ -783,3 +783,48 @@ def test_kernel_f_on_sfm_masked_rows(dev):
     assert bool((ip >= 0).all() and (ik >= 0).all())
     err = (dk.double() - dp.double()).abs()
     assert bool((err <= 1e-3 * dp.double().abs() + 1e-5 * mag).all())
+
+
+# -- the multi-device layer: two ranks on the one card over gloo -----------
+
+def test_two_gloo_ranks_on_the_card(dev, tmp_path):
+    """Two processes on one card over gloo (NCCL refuses two ranks on one
+    GPU): all_reduce and all_gather of CUDA tensors, the PR sweep chunk
+    over dp through kernel B (S 32 -> 16 a rank) against one
+    single-device call with the same offsets, and the dry run."""
+    import json
+    import os
+
+    from opencv_dlco_tpu_torch.models.pr_rda import PRState, pr_train_chunk
+    from torch_distworker import World
+
+    rng = np.random.default_rng(3)
+    inp = dict(pos=np.abs(rng.normal(1.0, 0.5, (2048, 512))).astype(
+        np.float32), neg=np.abs(rng.normal(1.2, 0.5, (2048, 512))).astype(
+        np.float32), mus=np.linspace(0.005, 0.05, 32).astype(np.float32),
+        gammas=np.linspace(0.02, 0.2, 32).astype(np.float32), seed=7,
+        batch=256, n_steps=6)
+    np.savez(os.path.join(tmp_path, "inputs.npz"), **inp)
+    world = World(2, "cuda", str(tmp_path)).ranks()
+    pos, neg = (torch.from_numpy(inp[k]).to(dev).to(torch.bfloat16)
+                for k in ("pos", "neg"))
+    zeros = torch.zeros((32, 512), device=dev)
+    one = pr_train_chunk(pos, neg, torch.from_numpy(inp["mus"]).to(dev),
+                         torch.from_numpy(inp["gammas"]).to(dev),
+                         PRState(w=zeros, df_avg=zeros.clone(), t=0),
+                         torch.Generator().manual_seed(7), batch=256,
+                         n_steps=6, sampling="block_fused",
+                         precision="default")
+    for r in world:
+        assert json.loads(str(r["info"]))["backend"] == "gloo"
+        np.testing.assert_array_equal(r["psum"], [10.0, 12.0, 14.0, 16.0])
+        np.testing.assert_array_equal(
+            r["gather"], [0.0, 1.0, 2.0, 3.0, 10.0, 11.0, 12.0, 13.0])
+        assert int(r["B_launches"]) > 0
+        # kernel B's per-combo work does not depend on the sweep width
+        np.testing.assert_allclose(r["sw_w"], one.w.cpu().numpy(),
+                                   **BF16)
+        np.testing.assert_allclose(r["sw_df"], one.df_avg.cpu().numpy(),
+                                   **BF16)
+        run = json.loads(str(r["dryrun"]))
+        assert run["mesh"] == {"dp": 1, "mp": 2} and run["pj_t"] == 1
