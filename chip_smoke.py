@@ -91,6 +91,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    collectives and pose hash are printed and written to
    ``chiprun_out/chip_smoke_multi_device.json``. Their A, B and G launches
    join the kernels line.
+5b. After phase 5, drives the ``e2e`` command
+   (``pipeline/e2e.run_reference_scale``) in-process on the card at a
+   reduced shape: the three datasets
+   synlib/synnot/synyos drawn on the card at 8,192 pairs each (two full
+   stage-1 chunks), stages 2-11 at full Brown width with the full 16 x 16
+   PR grid for 6 log periods of 48 steps (``--pr-iters 600000``; after 3
+   no iterate is within the 640-D cap yet) and the full 5 x 9 PJ grid for
+   one log period (``--pj-iters 500``), the four exports round-tripped,
+   its JSON written into the smoke's workspace. Counts are set to 0 just
+   before and read just after; it fails unless B launched there, the
+   summary's keys equal those of the committed ``E2E_FULL_torch.json`` at
+   every level and all four exports are ok. Its stage 3 takes the f32
+   route, as the JAX package's run_reference_scale does (the default
+   DescriptorConfig's precision is "highest"; kernel A is phase 2's
+   route), so A does not launch there. Its stage seconds are printed; its
+   launches join the kernels line.
 6. Checks the outputs: distance matrix shape, finiteness and separation,
    the first 64 rows against the f32 route, a finite sweep, saved
    histories, a ranked row; finite diffs and PJ models, four exports that
@@ -1741,6 +1757,81 @@ def kernel_checks_3(torch, chunks):
     return rows
 
 
+# -- the e2e command at a reduced shape --------------------------------------
+
+# two full stage-1 chunks a dataset, both drawn on the card. With one chunk
+# (4,096) a dataset holds its positives first, so an all-zero PR row's tied
+# distances keep that order and score FPR95 0 in the reference's ROC: the
+# degenerate row would rank first
+E2E_N_PAIRS = 8192
+# 6 log periods of 48 steps: after 3 every iterate is still wider than the
+# 640-D cap, so no history row would be saved and nothing could be ranked
+E2E_PR_ITERS = 600_000
+E2E_PJ_ITERS = 500                 # one PJ log period
+
+
+def run_e2e_phase(root):
+    """The ``e2e`` command in-process on the card, at a reduced shape:
+    the three datasets at 8,192 pairs, 6 PR log periods, one PJ log
+    period, the full grids and exports. Returns its summary as written to
+    its JSON."""
+    from opencv_dlco_tpu_torch import cli
+
+    out_json = os.path.join(root, "E2E_smoke.json")
+    cli.main(["e2e", "-w", os.path.join(root, "e2e"),
+              "--n-pairs", str(E2E_N_PAIRS),
+              "--pr-iters", str(E2E_PR_ITERS),
+              "--pj-iters", str(E2E_PJ_ITERS), "--out-json", out_json])
+    with open(out_json) as fh:
+        return json.load(fh)
+
+
+def key_paths(d, prefix=""):
+    """Every key path of a nested dict."""
+    out = set()
+    for k, v in d.items():
+        out.add(prefix + str(k))
+        if isinstance(v, dict):
+            out |= key_paths(v, f"{prefix}{k}/")
+    return out
+
+
+def check_e2e_phase(np, summary, card):
+    """The summary has the committed full-scale run's keys at every level,
+    the reduced shape, the card's nvidia-smi line as its device, finite
+    FPR95s and four exports that are ok."""
+    with open(os.path.join(HERE, "E2E_FULL_torch.json")) as fh:
+        committed = json.load(fh)
+    extra = key_paths(summary) ^ key_paths(committed)
+    if extra:
+        raise AssertionError(f"e2e summary keys differ from "
+                             f"E2E_FULL_torch.json's: {sorted(extra)}")
+    want = {"n_pairs": E2E_N_PAIRS, "pr_iters_per_combo": E2E_PR_ITERS,
+            "pj_iters_per_combo": E2E_PJ_ITERS, "pr_grid_combos": 256,
+            "pj_grid_combos": 45, "n_rings": 5120, "n_filters": 40960,
+            "backend": "cuda"}
+    want["device"] = card
+    got = {k: summary[k] for k in want}
+    if got != want:
+        raise AssertionError(f"e2e summary: {got} != {want}")
+    fprs = [summary["best_pr"]["mean_fpr95"]] + [
+        w["mean_fpr95"] for w in summary["pj_winners"].values()]
+    if not np.all(np.isfinite(fprs)) or not all(0 < f < 1 for f in fprs):
+        raise AssertionError(f"e2e FPR95s {fprs}")
+    exports = summary["exports"]
+    bad = [cap for cap, rec in exports.items()
+           if not rec["ok"] or not 0 < rec["dim"] <= int(cap)]
+    if bad or sorted(exports, key=int) != [str(d) for d in EXPORT_DIMS]:
+        raise AssertionError(f"e2e exports {exports}")
+    return {"best_pr": summary["best_pr"], "pr_ref": summary["pr_ref"],
+            "pj_winners": {cap: {k: w[k] for k in ("dim", "mean_fpr95")}
+                           for cap, w in summary["pj_winners"].items()},
+            "exports": {cap: {k: rec[k] for k in ("n_pr", "dim", "pj_in")}
+                        for cap, rec in exports.items()},
+            "device": summary["device"],
+            "total_wall_seconds": summary["total_wall_seconds"]}
+
+
 # -- the multi-device phase ------------------------------------------------
 
 MD_RANKS = 2                       # ranks on the one card, over gloo
@@ -2215,6 +2306,24 @@ def main() -> int:
             raise AssertionError(f"bench hinge details lack {missing}")
         print("bench hinge:", json.dumps(details["hinge"]), flush=True)
 
+        # -- the e2e command at a reduced shape (kernels A and B) ----------
+        with open(os.path.join(log_dir, "chip_smoke_stages.log"), "a") as fh:
+            with contextlib.redirect_stdout(fh):
+                e2e_summary, launches7 = counted(run_e2e_phase, root)
+        print("e2e stage seconds:", json.dumps(e2e_summary["stage_seconds"]),
+              flush=True)
+        print("e2e launches:", json.dumps(launches7), flush=True)
+        # stage 3 of the e2e command runs at DescriptorConfig's default
+        # precision, "highest": the f32 product, as the JAX package's
+        # run_reference_scale does (kernel A is the route of any other
+        # precision, phase 2's)
+        if launches7["B"] == 0:
+            raise AssertionError("kernel B never launched in the e2e "
+                                 "command")
+        print("e2e:", json.dumps(check_e2e_phase(np, e2e_summary, card)),
+              flush=True)
+        shutil.rmtree(os.path.join(root, "e2e"), ignore_errors=True)
+
         # the kernels' checks and profiles come before the SLAM profile
         res = kernel_checks(torch, ws, out["dist"])
         res.update(kernel_checks_2(torch))
@@ -2275,7 +2384,7 @@ def main() -> int:
             table.append({**r, "launches": launches[key] + launches2[key]
                           + launches3[key] + launches4[key]
                           + launches5[key] + launches6[key]
-                          + md_launches.get(key, 0)})
+                          + launches7[key] + md_launches.get(key, 0)})
         print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
         shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"kernels": table}))

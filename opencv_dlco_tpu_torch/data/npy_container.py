@@ -9,11 +9,13 @@ the artifact's path: each dataset is ``<name>.npy`` (a name with "/" is a
 subdirectory), attributes are ``attrs.json``. Dataset names, shapes,
 dtypes and attribute values are the HDF5 schema's; gzip chunking is not
 kept. Row reads and writes go through memory maps, so the streamed
-Distance matrix is never resident.
+Distance matrix is never resident, and a resize rewrites the header in
+place, so appending N rows to a history writes O(N) bytes.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
@@ -22,6 +24,13 @@ from typing import Optional
 import numpy as np
 
 _ATTRS = "attrs.json"
+#: .npy format version -> (header reader, header writer)
+_HEADER = {
+    (1, 0): (np.lib.format.read_array_header_1_0,
+             np.lib.format.write_array_header_1_0),
+    (2, 0): (np.lib.format.read_array_header_2_0,
+             np.lib.format.write_array_header_2_0),
+}
 
 
 class _Attrs:
@@ -79,8 +88,28 @@ class NpyDataset:
         mm.flush()
 
     def resize(self, n: int, axis: int = 0) -> None:
+        """Grow or shrink the leading axis in place: the header is rewritten
+        at its own length (numpy's writer leaves room in it for a longer
+        leading axis) and the file is cut, or extended with zero rows, so
+        an append writes its row and not the history. A header with no
+        such room, or a Fortran-ordered array, is rewritten whole."""
         if axis != 0:
             raise ValueError("only the leading axis can be resized")
+        with open(self._path, "rb") as fh:
+            version = np.lib.format.read_magic(fh)
+            if version in _HEADER:
+                shape, fortran, dtype = _HEADER[version][0](fh)
+                offset = fh.tell()
+                head = io.BytesIO()
+                _HEADER[version][1](head, {
+                    "descr": np.lib.format.dtype_to_descr(dtype),
+                    "fortran_order": False, "shape": (n,) + shape[1:]})
+        if version in _HEADER and not fortran and head.tell() == offset:
+            row_bytes = dtype.itemsize * int(np.prod(shape[1:]))
+            with open(self._path, "r+b") as fh:
+                fh.write(head.getvalue())
+                fh.truncate(offset + n * row_bytes)
+            return
         old = np.load(self._path, allow_pickle=False)
         new = np.zeros((n,) + old.shape[1:], old.dtype)
         k = min(n, old.shape[0])

@@ -42,6 +42,29 @@ def _param_groups(raw: bytes, shape: Tuple[int, ...], dtype: str):
     return np.any(params != 0.0, axis=1), inv.reshape(-1)
 
 
+def pr_geometry(params: np.ndarray, n_symmetries: int = 8,
+                n_channels: int = 8):
+    """``selected_pr_geometry`` bound to one bank: w -> (n_pr, dim,
+    nz_dim). The bank's row groups are looked up once here, not once per
+    call (the lookup hashes the whole bank; a sweep log period asks for up
+    to 256 geometries, prstats for one per history row and dataset)."""
+    params = np.ascontiguousarray(params)
+    nonzero, group = _param_groups(params.tobytes(), params.shape,
+                                   params.dtype.str)
+
+    def geometry(w) -> Tuple[int, int, int]:
+        w = np.asarray(w).reshape(-1)
+        ids = group[np.repeat(w > 0.0, n_symmetries) & nonzero]
+        nz_dim = ids.size
+        if nz_dim == 0:
+            return 0, 0, 0
+        dup_rows = int(np.sum(np.bincount(ids)[ids] >= 2))
+        n_pr = nz_dim - dup_rows // 2
+        return n_pr, n_pr * n_channels, nz_dim
+
+    return geometry
+
+
 def selected_pr_geometry(params: np.ndarray, w: np.ndarray,
                          n_symmetries: int = 8,
                          n_channels: int = 8) -> Tuple[int, int, int]:
@@ -49,21 +72,11 @@ def selected_pr_geometry(params: np.ndarray, w: np.ndarray,
     dup_rows/2 counting convention (src/misc.cpp:196-217): a family of m
     equal selected rows adds m to dup_rows. Rows are grouped by equality
     over the whole bank once; the selected rows' groups give the counts."""
-    w = np.asarray(w).reshape(-1)
-    params = np.ascontiguousarray(params)
-    nonzero, group = _param_groups(params.tobytes(), params.shape,
-                                   params.dtype.str)
-    ids = group[np.repeat(w > 0.0, n_symmetries) & nonzero]
-    nz_dim = ids.size
-    if nz_dim == 0:
-        return 0, 0, 0
-    dup_rows = int(np.sum(np.bincount(ids)[ids] >= 2))
-    n_pr = nz_dim - dup_rows // 2
-    return n_pr, n_pr * n_channels, nz_dim
+    return pr_geometry(params, n_symmetries, n_channels)(w)
 
 
-def _geometry_record(params, w, n_channels):
-    n_pr, dim, nz_dim = selected_pr_geometry(params, w, n_channels=n_channels)
+def _geometry_record(geometry, w) -> dict:
+    n_pr, dim, nz_dim = geometry(w)
     return {"n_pr": n_pr, "dim": dim, "nz_dim": nz_dim,
             "fpr95": None, "auc": None}
 
@@ -77,7 +90,7 @@ def compute_pr_stats(params: np.ndarray, dists: torch.Tensor,
                      max_dim: int = -1):
     """Full-dataset PR model stats (reference: src/misc.cpp:171-264);
     fpr95/auc are None when the model exceeds max_dim."""
-    out = _geometry_record(params, w, n_channels)
+    out = _geometry_record(pr_geometry(params, n_channels=n_channels), w)
     if max_dim != -1 and out["dim"] > max_dim:
         return out
     pd = torch.matmul(dists, _as_f32(w, dists).reshape(-1))
@@ -110,7 +123,7 @@ def compute_pr_stats_splits(params, splits, w, n_channels: int = 8,
     invariant, so no second copy of the matrix is needed on the device.
 
     ``splits`` maps {pos_trn, neg_trn, pos_val, neg_val} to f32 tensors."""
-    out = _geometry_record(params, w, n_channels)
+    out = _geometry_record(pr_geometry(params, n_channels=n_channels), w)
     if max_dim != -1 and out["dim"] > max_dim:
         return out
     ds = _pr_split_distances(_as_f32(w, splits["pos_trn"]),
@@ -129,8 +142,8 @@ def compute_pr_stats_rows(params, dists: torch.Tensor, labels: torch.Tensor,
     one product and one batched sort. Returns a list of dicts in row
     order, the fields of compute_pr_stats."""
     hist = np.asarray(hist)
-    out = [_geometry_record(params, hist[r], n_channels)
-           for r in range(hist.shape[0])]
+    geometry = pr_geometry(params, n_channels=n_channels)
+    out = [_geometry_record(geometry, hist[r]) for r in range(hist.shape[0])]
     eval_rows = [r for r, o in enumerate(out)
                  if max_dim == -1 or o["dim"] <= max_dim]
     for s in range(0, len(eval_rows), row_block):

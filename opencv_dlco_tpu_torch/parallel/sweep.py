@@ -40,7 +40,7 @@ from ..models.pj_rda import (
     pj_validate,
 )
 from ..models.pr_rda import PRState, pr_init, pr_train_chunk, pr_validate
-from ..models.select import compute_pj_stats_splits, selected_pr_geometry
+from ..models.select import compute_pj_stats_splits, pr_geometry
 from ..utils.checkpoint import (
     RunInterrupted,
     ShardedSweepCheckpoint,
@@ -165,7 +165,7 @@ def run_pr_sweep(ws, ds: str, grid: PRSweepGrid, base: PRLearnConfig,
     pos_val = torch.from_numpy(data["pos_val"]).to(dev)
     neg_val = torch.from_numpy(data["neg_val"]).to(dev)
     del data
-    params = ws.load_pr_params()
+    geometry = pr_geometry(ws.load_pr_params())
 
     n_feat = pos_trn.shape[1]
     steps_per_log = max(1, base.log_step // base.batch)
@@ -253,7 +253,7 @@ def run_pr_sweep(ws, ds: str, grid: PRSweepGrid, base: PRLearnConfig,
                 if imp_idx.size else None
             for j, si in enumerate(imp_idx):
                 w_np = w_host[j]
-                _, dim, _ = selected_pr_geometry(params, w_np)
+                _, dim, _ = geometry(w_np)
                 if dim <= base.max_dim:
                     stores[combos[si]].append_row("w", w_np)
                     row_counts[si] += 1

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import json
 import os
+import subprocess
 import time
 from typing import Dict, Optional, Sequence
 
@@ -118,6 +119,24 @@ def _roundtrip_header(path: str, device="cuda") -> dict:
             "ok": bool(mats["PJ"].shape[1] == mats["PR"].shape[0] * 8)}
 
 
+def card_description(dev: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them for this card, asked
+    by its UUID (a card may be set below its maximum power and then runs
+    slower under load); the name and "power limit not read" when
+    nvidia-smi cannot answer."""
+    uuid = torch.cuda.get_device_properties(dev).uuid
+    try:
+        line = subprocess.run(
+            ["nvidia-smi", "-i", f"GPU-{uuid}",
+             "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+            check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        line = ""
+    return line or f"{torch.cuda.get_device_name(dev)}, power limit not read"
+
+
 def run_reference_scale(root: str,
                         n_pairs: int = REFERENCE_N_PAIRS,
                         datasets: Optional[Dict[str, int]] = None,
@@ -190,8 +209,7 @@ def run_reference_scale(root: str,
                  "(no Brown raw data is mounted); FPR95 numbers are "
                  "NOT comparable to published Brown results"),
         "backend": dev.type,
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
+        "device": card_description(dev) if dev.type == "cuda" else "cpu",
         "n_pairs": int(n_pairs),
         "n_rings": int(ws.pool_cfg.n_rings),
         "n_filters": int(ws.pool_cfg.n_filters),
