@@ -451,6 +451,9 @@ class Workspace:
         records = []
         with MetricLogger(jsonl_path=jsonl_path) as log:
             for ds, dpath in dist_paths.items():
+                # the budget below is one matrix: drop the last dataset's
+                # before the next is read and uploaded
+                dists = None
                 with ArtifactStore(dpath, "r") as st:
                     labels = st.read("Label").reshape(-1)
                     n_rows, n_feat = st.shape("Distance")
@@ -692,6 +695,7 @@ class Workspace:
         records = []
         with MetricLogger(jsonl_path=jsonl_path) as log:
             for ds, upath in unproj_paths.items():
+                diffs = None          # one matrix resident, as in prstats
                 with ArtifactStore(upath, "r") as st:
                     labels = st.read("Label").reshape(-1)
                     n_rows, n_feat = st.shape("Distance")
