@@ -65,6 +65,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    counted, steady and profiled runs (the back end's sums have a fixed
    order), or if a repeat of any pose chunk's G call on its own recorded
    inputs (masked rows included) disagrees with G's plain version.
+4a. Drives the SLAM study's (192, 2215) cell
+   (``tools/slam_study.run_cell``, which ``study_row`` runs) with the
+   same header, its frames rendered on the host in a thread started after
+   the build: 192 frames, where the backbone's node floor is 32
+   (``min_backbone_nodes``) and the stride is capped at 192 // 32.
+   Counts are set to 0 just before and read just after; it fails unless
+   G launched there and both trajectories are finite of shape (192, 3).
+   It prints the study row, the stride, the node count and the seconds,
+   and holds G on every pose chunk of that run against the plain
+   version (hold_g's tolerance). Its launches join the kernels line.
 5. Drives the port's bench through its entry point,
    ``bench.run(suite="hinge")`` (kernel E against the sorted form at
    P = N = 50,000, 8 calls of each), writing its details file into the
@@ -141,6 +151,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    exits non-zero without that line.
 """
 
+import concurrent.futures
 import contextlib
 import hashlib
 import json
@@ -1476,6 +1487,7 @@ def hold_sfm_f(torch, q, t, got):
 
 SLAM_FRAMES = 48                   # the SLAM bench row (bench_slam)
 SLAM_SIZE = 256
+SLAM_LONG_FRAMES = 192             # the study's middle length (slam_long)
 
 
 def ate_over_span(np, translations, centers_gt):
@@ -1617,6 +1629,43 @@ def rerun_slam_path(torch, np, inputs, recorder):
                 kernel_launches=launches,
                 top_kernels=[(e.key[:60], e.self_device_time_total / 1e3,
                               e.count) for e in kernels[:5]])
+
+
+def run_slam_long_phase(torch, np, header_path, record, scene):
+    """The SLAM study's (192, 2215) cell through the study tool's
+    ``run_cell`` (what ``study_row`` runs: compute_features ->
+    run_odometry -> run_back_end at the study's DEFAULT config) with the
+    smoke's 64-D header, on ``scene`` (``render_cell(192, 2215)``, drawn
+    on the host while earlier phases ran); ``record`` wraps kernel G's
+    call site. Fails on a non-finite pose or a trajectory not of shape
+    (192, 3). Returns the study row and its seconds."""
+    from opencv_dlco_tpu_torch.models.vgg import VGGDescriptor
+    from opencv_dlco_tpu_torch.pipeline import slam
+    from opencv_dlco_tpu_torch.tools.slam_study import run_cell, study_config
+
+    with open(header_path) as fh:
+        model = VGGDescriptor.from_header(fh.read(), device="cuda")
+    cfg = study_config()
+    inner = slam.knn2_fused_batched
+    slam.knn2_fused_batched = record(inner)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row, odo, refined = run_cell(SLAM_LONG_FRAMES, 2215, model, cfg, {},
+                                     "cuda", scene=scene)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        slam.knn2_fused_batched = inner
+    for name, res in (("odometry", odo), ("refined", refined)):
+        if res.translations.shape != (SLAM_LONG_FRAMES, 3):
+            raise AssertionError(f"SLAM {SLAM_LONG_FRAMES} {name}: "
+                                 f"trajectory shape {res.translations.shape}")
+        if not (np.isfinite(res.rotations).all()
+                and np.isfinite(res.translations).all()):
+            raise AssertionError(f"SLAM {SLAM_LONG_FRAMES} {name}: "
+                                 f"non-finite pose")
+    return row, secs
 
 
 def hold_g(torch, name, q, t, got):
@@ -2149,6 +2198,11 @@ def main() -> int:
         t0 = time.perf_counter()
         cuda_build.build_all()
         print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
+        # phase 4a's 192 frames are host work (~30 s of numpy splatting),
+        # rendered in a thread while the card runs the phases before it
+        from opencv_dlco_tpu_torch.tools.slam_study import render_cell
+        render_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        long_scene = render_pool.submit(render_cell, SLAM_LONG_FRAMES, 2215)
         for line in ptxas_summary(cuda_build):
             print(line)
 
@@ -2295,6 +2349,37 @@ def main() -> int:
             raise AssertionError("kernel G never launched on the SLAM path")
         print("SLAM:", json.dumps(facts3), flush=True)
 
+        # -- SLAM at the study's 192 frames (the 32-node backbone floor) ----
+        long_chunks = []
+
+        def keep_long(fn):
+            def g(query, train, **kw):
+                long_chunks.append((query.clone(), train.clone()))
+                return fn(query, train, **kw)
+            return g
+
+        scene = long_scene.result()
+        render_pool.shutdown()
+        (long_row, long_secs), launches8 = counted(
+            run_slam_long_phase, torch, np, header_64, keep_long, scene)
+        del scene
+        print(f"SLAM {SLAM_LONG_FRAMES} frames: {long_secs:.3f}s, stride "
+              f"{long_row['stride']}, {long_row['n_nodes']} nodes, "
+              f"launches {json.dumps(launches8)}", flush=True)
+        print(f"SLAM {SLAM_LONG_FRAMES} row:", json.dumps(long_row),
+              flush=True)
+        if launches8["G"] == 0:
+            raise AssertionError(f"kernel G never launched on the "
+                                 f"{SLAM_LONG_FRAMES}-frame SLAM path")
+        held = [hold_g(torch, f"G[{SLAM_LONG_FRAMES}-frame chunk {i}]", q, t,
+                       knn_fused.knn2_fused_batched(q, t))
+                for i, (q, t) in enumerate(long_chunks)]
+        print(f"SLAM {SLAM_LONG_FRAMES} G vs plain:", json.dumps({
+            "chunks": len(held), "max_abs_err": max(h[0] for h in held),
+            "near_tie_swaps": sum(h[3] for h in held),
+            "tolerance": held[0][2]}), flush=True)
+        del long_chunks, held
+
         # -- the bench entry point, suite "hinge" (kernel E) ---------------
         details, launches4 = counted(run_bench_hinge,
                                      os.path.join(root, "bench"))
@@ -2384,7 +2469,8 @@ def main() -> int:
             table.append({**r, "launches": launches[key] + launches2[key]
                           + launches3[key] + launches4[key]
                           + launches5[key] + launches6[key]
-                          + launches7[key] + md_launches.get(key, 0)})
+                          + launches7[key] + launches8[key]
+                          + md_launches.get(key, 0)})
         print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
         shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"kernels": table}))

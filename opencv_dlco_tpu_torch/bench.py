@@ -19,10 +19,13 @@ Keys renamed from the JAX package's, because they named a TPU unit:
 - ``pallas_time`` -> ``kernel_time`` (``bench_hinge_kernels``);
 - ``{label}_mxu_floor`` -> ``{label}_tc_floor`` (``bench_pr_sweep``: the
   tensor cores' floor).
-Every other key keeps its JAX name. The port has one kernel set for the
-wide grid (``csrc/rda_wide.cu``) where the JAX package has two
-bit-identical twins, so ``fused_wide_pipelined_bf16_*`` time the same
-kernel as ``fused_wide_bf16_*`` a second time.
+Every other key keeps its JAX name. ``bench_slam`` takes its descriptor
+as a header path (``run(header=...)``, ``cli bench --header``) where the
+JAX suite reads the reference's shipped 64-D header from a fixed path.
+The port has one kernel set for the wide grid (``csrc/rda_wide.cu``)
+where the JAX package has two bit-identical twins, so
+``fused_wide_pipelined_bf16_*`` time the same kernel as
+``fused_wide_bf16_*`` a second time.
 
 ``run()`` writes every suite's details to ``bench_details_torch.json`` (the
 committed ``bench_details.json`` is the JAX package's) and prints ONE JSON
@@ -741,23 +744,24 @@ def bench_matching(n_query=65_536, n_train=65_536, dims=(64, 128),
     return out
 
 
-def bench_slam(n_frames=48, size=256, n_keypoints=256, device="cuda"):
+def bench_slam(n_frames=48, size=256, n_keypoints=256, header=None,
+               device="cuda"):
     """SLAM throughput (BASELINE.json KITTI config; no reference analogue).
 
     Times the batched front end (detect+describe, chunked match->RANSAC->BA
     pair poses) and the full stack (keyframes, detected loop closures,
     windowed BA, Sim(3) pose graph) on a rendered closed-loop sequence,
-    steady state (the second run). Needs the reference's 64-D header
-    (skipped without it).
+    steady state (the second run). The descriptor is the VGG header at
+    ``header`` (a ``.i`` file, such as the 64-D export of the ``e2e``
+    command); skipped without one.
     """
     from .data.synthetic import render_blob_sequence
     from .models.vgg import VGGDescriptor
     from .pipeline.slam import (SlamConfig, ate_rmse, compute_features,
                                 run_back_end, run_odometry)
 
-    header = "/root/reference/workspace/opencv/vgg_generated_64.i"
-    if not os.path.exists(header):
-        return {"skipped": "reference VGG header not mounted"}
+    if header is None:
+        return {"skipped": "no VGG header given (--header)"}
     dev = _device(device)
     with open(header) as fh:
         model = VGGDescriptor.from_header(fh.read(), device=dev)
@@ -828,10 +832,12 @@ def headline(details: dict) -> dict:
 
 
 def run(suite: str = "headline", out_path: str = DEFAULT_OUT,
-        device="cuda"):
+        device="cuda", header=None):
     """Run ``suite`` ("headline" by default, "all" for every suite but the
     soak) on ``device``; write the details to ``out_path`` and print the
-    JSON headline as the last line of stdout. Returns the details."""
+    JSON headline as the last line of stdout. Returns the details. The
+    SLAM suites describe with the VGG header at ``header`` (skipped
+    without one)."""
     dev = _device(device)
     details = {"backend": dev.type,
                "device": (torch.cuda.get_device_name(dev) if _on_card(dev)
@@ -869,14 +875,16 @@ def run(suite: str = "headline", out_path: str = DEFAULT_OUT,
     if suite in ("all", "precision"):
         details["precision_fpr95"] = bench_precision_fpr95(**kw)
     if suite in ("all", "slam"):
-        details["slam"] = bench_slam(**kw)
+        details["slam"] = bench_slam(header=header, **kw)
     if suite in ("all", "slam_long"):
         # 4x the flagship sequence: front-end fps must hold, the back end
         # grows ~linearly
-        details["slam_long"] = bench_slam(n_frames=192, **kw)
+        details["slam_long"] = bench_slam(n_frames=192, header=header,
+                                           **kw)
     if suite in ("all", "slam_xl"):
         # ~KITTI-07 length; exercises the self-correcting backbone stride
-        details["slam_xl"] = bench_slam(n_frames=512, **kw)
+        details["slam_xl"] = bench_slam(n_frames=512, header=header,
+                                         **kw)
     if suite in ("all", "matching"):
         details["matching"] = bench_matching(**kw)
     details["total_bench_time"] = time.time() - t0

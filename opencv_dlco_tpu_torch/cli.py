@@ -22,6 +22,7 @@ Usage examples:
     python -m opencv_dlco_tpu_torch.cli sfm      --image1 a.bmp --image2 b.bmp --model vgg_generated_64.i --intrinsics 300,300,160,160
     python -m opencv_dlco_tpu_torch.cli slam     --root kitti --sequence 07 --model vgg_generated_64.i
     python -m opencv_dlco_tpu_torch.cli bench    --suite hinge
+    python -m opencv_dlco_tpu_torch.cli bench    --suite slam_xl --header vgg_generated_64.i
     python -m opencv_dlco_tpu_torch.cli dist-info
 
 Several processes (one rank each): set DLCO_COORDINATOR=host:port,
@@ -223,7 +224,7 @@ def cmd_bench(args):
     from . import bench
 
     bench.run(suite=args.suite, out_path=args.out or bench.DEFAULT_OUT,
-              device=args.device)
+              device=args.device, header=args.header)
 
 
 def cmd_dist_info(args):
@@ -395,6 +396,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--out", default=None,
                     help="the details file (JSON; default "
                          "bench_details_torch.json)")
+    sp.add_argument("--header", default=None,
+                    help="the VGG header (.i) the SLAM suites describe "
+                         "with; they are skipped without one")
     sp.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     sp.set_defaults(fn=cmd_bench)

@@ -118,3 +118,34 @@ def test_device_trace_is_a_noop_without_a_directory(monkeypatch, tmp_path):
     with device_trace(str(trace_dir)) as where:
         torch.ones(4).sum()
     assert where == str(trace_dir) and any(trace_dir.iterdir())
+
+
+def test_slam_suites_skip_without_a_header(tmp_path):
+    out = tmp_path / "slam.json"
+    for suite in ("slam", "slam_long", "slam_xl"):
+        details = bench.run(suite=suite, out_path=str(out), device="cpu")
+        assert set(details[suite]) == {"skipped"}, details[suite]
+
+
+def test_slam_suites_pass_the_header_through(monkeypatch, tmp_path, capsys):
+    """run() and ``cli bench --header`` hand the header to bench_slam at
+    each suite's length (a stub stands in for the SLAM run)."""
+    calls = []
+
+    def bench_slam(n_frames=48, size=256, n_keypoints=256, header=None,
+                   device="cuda"):
+        calls.append((n_frames, header, torch.device(device).type))
+        return {"n_frames": n_frames}
+
+    monkeypatch.setattr(bench, "bench_slam", bench_slam)
+    out = tmp_path / "slam.json"
+    for suite in ("slam", "slam_long", "slam_xl"):
+        details = bench.run(suite=suite, out_path=str(out), device="cpu",
+                            header="h.i")
+        assert details[suite] == {"n_frames": calls[-1][0]}
+    cli_main(["bench", "--suite", "slam_xl", "--header", "m.i", "--out",
+              str(out), "--device", "cpu"])
+    assert calls == [(48, "h.i", "cpu"), (192, "h.i", "cpu"),
+                     (512, "h.i", "cpu"), (512, "m.i", "cpu")]
+    assert json.loads(out.read_text())["slam_xl"] == {"n_frames": 512}
+    json.loads(capsys.readouterr().out.strip().splitlines()[-1])

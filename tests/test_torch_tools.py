@@ -4,6 +4,7 @@ row format (the JAX tool's keys, tools/slam_study.py) and the ``--out``
 merge by (scene, seed). No SLAM runs here; ``study_row`` is replaced by
 a stub that returns rows in its format."""
 
+import hashlib
 import json
 
 import numpy as np
@@ -67,9 +68,75 @@ def test_rows_and_out_merge(stub, tmp_path, capsys):
     slam_study.main(["--header", header, "--device", "cpu", "--scenes",
                      "48,512", "--seeds", "7", "--out", out])
     with open(out) as fh:
-        merged = json.load(fh)
+        study = json.load(fh)
+    merged = study["rows"]
     assert [(r["scene"], r["seed"]) for r in merged] == [
         (48, 7), (48, 2215), (192, 7), (192, 2215), (512, 7)]
     assert merged[0]["overrides"] == {} and merged[1]["overrides"] == {
         "loop_top_k": 4}
+    # the file records the last run's command, the device and the header
+    assert study["command"].split()[:3] == [
+        "python", "-m", "opencv_dlco_tpu_torch.tools.slam_study"]
+    assert "--scenes 48,512" in study["command"]
+    assert study["card"] == "cpu"
+    with open(header) as fh:
+        text = fh.read()
+    assert study["header"] == {
+        "file": "vgg_generated_8.i",
+        "sha1": hashlib.sha1(text.encode()).hexdigest(),
+        "n_pr": 4, "pj_dim": 8, "pj_in": 32}
+
+
+def test_out_refuses_rows_of_another_header(stub, tmp_path):
+    _, header = stub
+    out = str(tmp_path / "study.json")
+    slam_study.main(["--header", header, "--device", "cpu", "--scenes",
+                     "48", "--seeds", "7", "--out", out])
+    other = tmp_path / "vgg_generated_other.i"
+    rng = np.random.default_rng(1)
+    other.write_text(emit_vgg_header(
+        rng.uniform(0, 1, (4, 4096)).astype(np.float32),
+        rng.standard_normal((8, 32)).astype(np.float32)))
+    with pytest.raises(ValueError, match="holds rows of header"):
+        slam_study.main(["--header", str(other), "--device", "cpu",
+                         "--scenes", "48", "--seeds", "7", "--out", out])
+
+
+def test_cuda_is_required_unless_cpu_is_asked(stub, monkeypatch):
+    import torch
+
+    calls, header = stub
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit):
+        slam_study.main(["--header", header, "--scenes", "48"])
+    assert calls == []
+
+
+def test_run_cell_row_on_the_cpu():
+    """The row of one real cell (12 frames, 128 keypoints; a 64-D header
+    of 96 ring-bank rows and a seeded projection): the JAX tool's keys,
+    the loop counters, the backbone, G's launches (0 on the CPU) and the
+    pose hashes."""
+    from opencv_dlco_tpu_torch.models.vgg import VGGDescriptor
+    from opencv_dlco_tpu_torch.ops.pool_regions import build_filter_bank
+    from opencv_dlco_tpu_torch.pipeline.slam import SlamConfig
+    from opencv_dlco_tpu_torch.utils.configs import PoolRegionConfig
+
+    rng = np.random.default_rng(31)
+    _, _, bank = build_filter_bank(PoolRegionConfig(nr=16, nphi=2, nsigma=4))
+    sel = bank[rng.choice(bank.shape[0], 96, replace=False)]
+    pj = rng.standard_normal((64, 768)) / np.sqrt(768)
+    model = VGGDescriptor.from_header(emit_vgg_header(
+        sel.astype(np.float32), pj.astype(np.float32)), device="cpu")
+    cfg = SlamConfig(n_keypoints=128, kf_min_translation=2.5,
+                     kf_min_rotation=0.05, loop_gap=10)
+    row, odo, refined = slam_study.run_cell(12, 2215, model, cfg, {}, "cpu")
+    assert ROW_KEYS <= set(row) and row["scene"] == 12
+    assert {"loop_n_candidates", "loop_accepted"} <= set(row)
+    assert row["n_nodes"] == (12 if odo.nodes is None else len(odo.nodes))
+    assert row["g_launches"] == 0
+    assert row["odo_sha1"] == slam_study.poses_sha1(odo)
+    assert row["ref_sha1"] == slam_study.poses_sha1(refined)
+    assert refined.translations.shape == (12, 3)
+    assert np.isfinite(refined.translations).all()
 
