@@ -114,11 +114,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
    summary's keys equal those of the committed ``E2E_FULL_torch.json`` at
    every level and all four exports are ok. Its stage 3 takes the f32
    route, as the JAX package's run_reference_scale does (the default
-   DescriptorConfig's precision is "highest"; kernel A is phase 2's
-   route), so A does not launch there. Its stage seconds are printed; its
-   launches join the kernels line.
+   DescriptorConfig's precision is "highest"), so A does not launch there.
+   Then the same run once more, in a fresh workspace, on the bf16 route
+   through tools/e2e_memory_run.py's ``--matmul-precision default`` (its
+   Workspace swap): counts set to 0 just before and read just after, it
+   fails unless A launched once a stage-3 block (3, one 8,192-pair block a
+   dataset) and the f32 route never ran, the same checks hold, and its
+   best PR row's and each PJ winner's mean FPR95 lie within 0.5 and 1.0
+   pp of the f32 run's (tests/test_torch_e2e_artifact.py's tolerances).
+   Both runs' stage seconds are printed; their launches join the kernels
+   line.
 6. Checks the outputs: distance matrix shape, finiteness and separation,
-   the first 64 rows against the f32 route, a finite sweep, saved
+   all 8,192 bf16 rows against the f32 route on the same pairs (the
+   precision suite's median relative error, under 5e-3), a finite sweep, saved
    histories, a ranked row; finite diffs and PJ models, four exports that
    parse, finite descriptors, fused matching against the scan path, and
    each kNN kernel call of the evaluation against the plain version.
@@ -192,6 +200,14 @@ TOL_RING = (1e-4, 1e-5)
 # kernel A's timed pair blocks: a small block, Workspace.pair_block (this
 # script's compdist), run_reference_scale's pair_block
 A_PAIRS = (64, 256, 8192)
+# stage 3's bf16 rows against the f32 route's on the same pairs: the
+# median of |bf16 - f32| / (|f32| + 1e-6), as bench_precision_fpr95
+# reports it, under tests/test_precision.py's median bound
+STAGE3_BF16_MEDIAN_REL_ERR = 5e-3
+# the bf16 e2e run against the f32 one: tests/test_torch_e2e_artifact.py's
+# tolerances on the best PR row's and each PJ winner's mean FPR95
+BEST_PR_FPR95_TOL = 0.005
+PJ_FPR95_TOL = 0.010
 
 
 def card_line():
@@ -447,16 +463,23 @@ def check_main_path(torch, np, ws, out):
     assert d.shape == (N_PAIRS, n_rings), d.shape
     assert np.all(np.isfinite(d)) and d.min() >= 0.0
     assert d[lab == 1].mean() < d[lab == 0].mean(), "no pos/neg separation"
-    # the first 64 rows against the f32 route on the same patches
+    # every row against the f32 route on the same patches (blocks of 1,024
+    # pairs), by the precision suite's median relative error
     with store(ws.path("dataset", "synsmoke.h5"), "r") as st:
-        idx = st.read("Indices")[:64]
+        idx = st.read("Indices")
         patches = st.read("Patches")
     f32 = torch.from_numpy(ws.load_filters()).cuda()
-    pt1 = batch_patch_transform(torch.from_numpy(patches[idx[:, 0]]).cuda())
-    pt2 = batch_patch_transform(torch.from_numpy(patches[idx[:, 2]]).cuda())
-    ref = ring_distances(f32, pt1, pt2).cpu().numpy()
-    rel = np.abs(d[:64] - ref) / (np.abs(ref) + 1e-3)
-    assert np.median(rel) < 2e-2, f"stage-3 median rel err {np.median(rel)}"
+    ref = np.empty_like(d)
+    for s0 in range(0, N_PAIRS, 1024):
+        pt1, pt2 = (batch_patch_transform(torch.from_numpy(
+            patches[idx[s0:s0 + 1024, c]]).cuda()) for c in (0, 2))
+        ref[s0:s0 + 1024] = ring_distances(f32, pt1, pt2).cpu().numpy()
+    del f32, pt1, pt2
+    rel = np.median(np.abs(d - ref) / (np.abs(ref) + 1e-6))
+    if not rel < STAGE3_BF16_MEDIAN_REL_ERR:
+        raise AssertionError(f"stage-3 bf16 rows: median rel err {rel} "
+                             f"against the f32 route (limit "
+                             f"{STAGE3_BF16_MEDIAN_REL_ERR})")
     assert len(out["sweep"]) == 256
     assert all(np.isfinite(r["obj"]) for r in out["sweep"])
     with store(out["single"], "r") as st:
@@ -465,7 +488,8 @@ def check_main_path(torch, np, ws, out):
     assert out["recs"], "no w history row saved under max_dim"
     best = out["ranked"][0]
     assert 0.0 <= best["mean_fpr95"] <= 1.0
-    return dict(stage3_median_rel_err_vs_f32=float(np.median(rel)),
+    return dict(stage3_median_rel_err_vs_f32=float(rel),
+                stage3_rows_vs_f32=int(N_PAIRS),
                 best_fpr95=best["mean_fpr95"], best_dim=best["dim"],
                 best_model=os.path.basename(best["model"]),
                 best_row=best["row"], n_rows_ranked=len(out["recs"]))
@@ -1819,15 +1843,15 @@ E2E_PR_ITERS = 600_000
 E2E_PJ_ITERS = 500                 # one PJ log period
 
 
-def run_e2e_phase(root):
+def run_e2e_phase(root, name="e2e"):
     """The ``e2e`` command in-process on the card, at a reduced shape:
     the three datasets at 8,192 pairs, 6 PR log periods, one PJ log
-    period, the full grids and exports. Returns its summary as written to
-    its JSON."""
+    period, the full grids and exports, in the workspace ``root/name``.
+    Returns its summary as written to its JSON."""
     from opencv_dlco_tpu_torch import cli
 
-    out_json = os.path.join(root, "E2E_smoke.json")
-    cli.main(["e2e", "-w", os.path.join(root, "e2e"),
+    out_json = os.path.join(root, f"E2E_smoke_{name}.json")
+    cli.main(["e2e", "-w", os.path.join(root, name),
               "--n-pairs", str(E2E_N_PAIRS),
               "--pr-iters", str(E2E_PR_ITERS),
               "--pj-iters", str(E2E_PJ_ITERS), "--out-json", out_json])
@@ -1879,6 +1903,49 @@ def check_e2e_phase(np, summary, card):
                         for cap, rec in exports.items()},
             "device": summary["device"],
             "total_wall_seconds": summary["total_wall_seconds"]}
+
+
+def load_tool(name):
+    """``tools/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_e2e_bf16_phase(root):
+    """The same reduced ``e2e`` run on the bf16 route, through
+    tools/e2e_memory_run.py's ``--matmul-precision default`` (its Workspace
+    swap) in a fresh workspace; returns the summary and the stage-3 calls
+    of each route."""
+    tool = load_tool("e2e_memory_run")
+    with tool.stage3_precision("default"), tool.stage3_route() as calls:
+        summary = run_e2e_phase(root, "e2e_bf16")
+    return summary, dict(calls)
+
+
+def check_e2e_bf16_phase(np, bf16, f32, calls, launches, card):
+    """The bf16 run: kernel A once a stage-3 block (and no f32 block),
+    the f32 run's checks, and its end metrics within the gates of the f32
+    run's."""
+    n_blocks = len(bf16["datasets"]) * -(-bf16["n_pairs"] // 8192)
+    if not launches["A"] == calls["kernel_A"] == n_blocks or calls["f32"]:
+        raise AssertionError(f"bf16 e2e: A launched {launches['A']} times, "
+                             f"stage-3 calls {calls}, {n_blocks} blocks")
+    facts = check_e2e_phase(np, bf16, card)
+    d_pr = abs(bf16["best_pr"]["mean_fpr95"] - f32["best_pr"]["mean_fpr95"])
+    d_pj = {cap: abs(w["mean_fpr95"]
+                     - f32["pj_winners"][cap]["mean_fpr95"])
+            for cap, w in bf16["pj_winners"].items()}
+    if d_pr > BEST_PR_FPR95_TOL or max(d_pj.values()) > PJ_FPR95_TOL:
+        raise AssertionError(f"bf16 e2e against f32: best PR row "
+                             f"|dFPR95| {d_pr} (limit {BEST_PR_FPR95_TOL}), "
+                             f"PJ winners {d_pj} (limit {PJ_FPR95_TOL})")
+    return {**facts, "stage3_blocks": n_blocks,
+            "d_best_pr_fpr95": d_pr, "d_pj_fpr95": d_pj}
 
 
 # -- the multi-device phase ------------------------------------------------
@@ -2409,6 +2476,19 @@ def main() -> int:
               flush=True)
         shutil.rmtree(os.path.join(root, "e2e"), ignore_errors=True)
 
+        # -- the same run on the bf16 route (kernel A in stage 3) ----------
+        with open(os.path.join(log_dir, "chip_smoke_stages.log"), "a") as fh:
+            with contextlib.redirect_stdout(fh):
+                (e2e_bf16, calls9), launches9 = counted(run_e2e_bf16_phase,
+                                                        root)
+        print("e2e bf16 stage seconds:",
+              json.dumps(e2e_bf16["stage_seconds"]), flush=True)
+        print("e2e bf16 launches:", json.dumps(launches9), "stage-3 calls:",
+              json.dumps(calls9), flush=True)
+        print("e2e bf16:", json.dumps(check_e2e_bf16_phase(
+            np, e2e_bf16, e2e_summary, calls9, launches9, card)), flush=True)
+        shutil.rmtree(os.path.join(root, "e2e_bf16"), ignore_errors=True)
+
         # the kernels' checks and profiles come before the SLAM profile
         res = kernel_checks(torch, ws, out["dist"])
         res.update(kernel_checks_2(torch))
@@ -2470,6 +2550,7 @@ def main() -> int:
                           + launches3[key] + launches4[key]
                           + launches5[key] + launches6[key]
                           + launches7[key] + launches8[key]
+                          + launches9[key]
                           + md_launches.get(key, 0)})
         print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
         shutil.rmtree(root, ignore_errors=True)

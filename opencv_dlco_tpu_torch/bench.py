@@ -368,8 +368,11 @@ def bench_precision_fpr95(n_pairs=50_000, block=512, pool_cfg=None,
     40,960-filter bank, PatchDist = w . ring_dists with a uniform w and a
     sparse trained-like w (13 spread rings, the published models' shape).
     The bf16 route is kernel A where the bank fits its tiles, else its
-    plain version (bf16 operands, f32 products); bf16 is recommended when |dFPR95| < 0.1 percentage points for both w
-    (the gate PARITY.md documents)."""
+    plain version (bf16 operands, f32 products), chosen by the bank's
+    shape and named in ``bf16_route``; on the card, kernel A's route
+    raises unless it launched once a block (``kernel_a_launches``). bf16
+    is recommended when |dFPR95| < 0.1 percentage points for both w (the
+    gate PARITY.md documents)."""
     from .data.synthetic import HARD_PAIR_PARAMS, synth_patch_pairs
     from .ops.pair_distance import ring_distances
     from .ops.pair_distance_fused import (TF, TK, ring_distances_fused,
@@ -386,6 +389,7 @@ def bench_precision_fpr95(n_pairs=50_000, block=512, pool_cfg=None,
     n_rings = filters.shape[0] // 8
     bf16_route = (ring_distances_fused if f.shape[0] % TF == 0
                   and f.shape[1] % TK == 0 else ring_distances_plain)
+    launches0 = ring_distances_fused.launches
 
     rng = np.random.default_rng(seed)
     # chunked generation (the FFT texture synth is host-side)
@@ -413,7 +417,9 @@ def bench_precision_fpr95(n_pairs=50_000, block=512, pool_cfg=None,
             return ring_distances(f, pt1, pt2)
         return bf16_route(f, pt1, pt2, bf16=True)
 
-    out = {"n_pairs": int(n_pairs), "n_filters": int(f.shape[0])}
+    out = {"n_pairs": int(n_pairs), "n_filters": int(f.shape[0]),
+           "bf16_route": ("kernel_A" if bf16_route is ring_distances_fused
+                          else "plain")}
     dists = {}
     for label in ("f32", "bf16"):
         rows = []
@@ -432,6 +438,13 @@ def bench_precision_fpr95(n_pairs=50_000, block=512, pool_cfg=None,
             fpr95, auc = roc_stats(d, labels)
             out[f"{label}_{wname}_fpr95"] = float(fpr95) * 100.0
             out[f"{label}_{wname}_auc"] = float(auc)
+    out["kernel_a_launches"] = ring_distances_fused.launches - launches0
+    n_blocks = -(-n_pairs // block)
+    if (_on_card(dev) and bf16_route is ring_distances_fused
+            and out["kernel_a_launches"] != n_blocks):
+        raise RuntimeError(f"precision suite: kernel A launched "
+                           f"{out['kernel_a_launches']} times for "
+                           f"{n_blocks} bf16 blocks")
     for wname in ("uniform", "sparse"):
         out[f"delta_fpr95_{wname}"] = (out[f"bf16_{wname}_fpr95"]
                                        - out[f"f32_{wname}_fpr95"])

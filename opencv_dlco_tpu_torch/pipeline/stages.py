@@ -217,19 +217,24 @@ class Workspace:
             st.set_meta("complete", True)
         return out
 
-    def _dist_rows(self, st, indices, patches, lo: int, hi: int, bar=None):
-        """Compute + write distance rows [lo, hi) into ``st``.
+    def _stage3_bank(self):
+        """The bank on the device and whether stage 3 takes kernel A.
 
         precision "highest" runs the f32 route (ops/pair_distance.py); any
         other precision takes kernel A (bf16 inputs, f32 accumulation) when
-        the bank's shape fits its tiles. The bank is cast to bf16 once per
-        call, not once per block."""
+        the bank's shape fits its tiles, the bank then cast to bf16 here,
+        once per call, not once per block."""
         filters = torch.from_numpy(self.load_filters()).to(self._dev)
         nf, npix = filters.shape
         use_fused = (self.desc_cfg.matmul_precision != "highest"
                      and nf % TF == 0 and npix % TK == 0)
-        if use_fused:
-            filters = filters.to(torch.bfloat16)
+        return (filters.to(torch.bfloat16) if use_fused else filters,
+                use_fused)
+
+    def _dist_rows(self, st, indices, patches, lo: int, hi: int, bar=None):
+        """Compute + write distance rows [lo, hi) into ``st``, on the
+        route ``_stage3_bank`` picks."""
+        filters, use_fused = self._stage3_bank()
         blk = self.pair_block
         for s in range(lo, hi, blk):
             e = min(s + blk, hi)

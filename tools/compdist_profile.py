@@ -1,22 +1,25 @@
 """Split stage 3's (compdist's) seconds a block on an ``e2e`` workspace:
-the f32 product on the card against the host's work.
+the ring-distance product on the card against the host's work.
 
     python tools/compdist_profile.py -w <workspace> --ds synlib \
-        --blocks 8 --out-json <path>
+        --blocks 8 --out-json <path> [--matmul-precision default]
 
 The workspace is one the ``e2e`` command wrote (its dataset and filter
 bank); stage 3 runs as ``run_reference_scale`` runs it
-(``Workspace(pair_block=8192)``, ``DescriptorConfig``'s default precision,
-so the f32 route). Three parts, each over the first ``--blocks`` blocks of
-the dataset, writing into a scratch artifact of the stage's full shape
-that is removed at the end:
+(``Workspace(pair_block=8192)``), at ``DescriptorConfig``'s default
+precision "highest" (the f32 route) or, with ``--matmul-precision
+default``, on the bf16 route (kernel A), the route
+``Workspace._stage3_bank`` picks. Three parts, each over the first
+``--blocks`` blocks of the dataset, writing into a scratch artifact of
+the stage's full shape that is removed at the end:
 
 1. ``split``: the body of ``Workspace._dist_rows`` a line at a time, the
    card synchronised after each part: the host's patch gather
    (``patches[indices[s:e, c]]``), the upload, the patch transform, the
-   ring distances (the f32 product with its truncation and ring sums),
-   the copy to the host, the finite check, and ``write_rows`` (the memory
-   map's copy and flush); host seconds from ``time.perf_counter``;
+   ring distances (the f32 product with its truncation and ring sums, or
+   kernel A with its operand layout), the copy to the host, the finite
+   check, and ``write_rows`` (the memory map's copy and flush); host
+   seconds from ``time.perf_counter``;
 2. ``program``: ``Workspace._dist_rows`` itself over the same blocks, timed
    on the host clock (the loop already synchronises on every block's copy
    to the host);
@@ -26,10 +29,12 @@ that is removed at the end:
 
 With ``--prepare`` the tool first writes what it needs: the dataset at
 the ``e2e`` command's default size and seed and its stage 3
-(``compdist``), each timed. The patches' and indices' load
-(``ArtifactStore.read``, as compdist does) is timed once; each part's rows
-are compared with the stage's own output (``rows_equal_stage_output``).
-The JSON names the card from nvidia-smi.
+(``compdist``, on the same route), each timed. The patches' and indices'
+load (``ArtifactStore.read``, as compdist does) is timed once; each part's
+rows are compared with the stage's own output
+(``rows_equal_stage_output``: a stage-3 artifact written on the other
+route does not compare equal). The JSON names the card from nvidia-smi,
+the precision and the route.
 """
 
 import argparse
@@ -51,9 +56,13 @@ from opencv_dlco_tpu_torch.pipeline.e2e import (  # noqa: E402
     DEFAULT_DATASETS, REFERENCE_N_PAIRS, generate_synthetic_dataset)
 from opencv_dlco_tpu_torch.ops.pair_distance import (  # noqa: E402
     ring_distances)
+from opencv_dlco_tpu_torch.ops.pair_distance_fused import (  # noqa: E402
+    ring_distances_fused)
 from opencv_dlco_tpu_torch.ops.patch_transform import (  # noqa: E402
     batch_patch_transform)
 from opencv_dlco_tpu_torch.pipeline.stages import Workspace  # noqa: E402
+from opencv_dlco_tpu_torch.utils.configs import (  # noqa: E402
+    DescriptorConfig)
 
 PAIR_BLOCK = 8192            # run_reference_scale's Workspace(pair_block)
 
@@ -80,8 +89,13 @@ def scratch_store(ws, shape, tag: str):
 def split_blocks(ws, st, indices, patches, n_blocks: int) -> dict:
     """Part 1: _dist_rows' body timed a part at a time."""
     dev = ws._dev
-    filters = torch.from_numpy(ws.load_filters()).to(dev)
+    filters, fused = ws._stage3_bank()
     secs = {p: [] for p in PARTS}
+
+    def dists(pt1, pt2):
+        if fused:
+            return ring_distances_fused(filters, pt1, pt2, bf16=True)
+        return ring_distances(filters, pt1, pt2)
 
     def part(name, fn):
         t0 = time.perf_counter()
@@ -100,7 +114,7 @@ def split_blocks(ws, st, indices, patches, n_blocks: int) -> dict:
         pt1, pt2 = part("transform", lambda: (
             batch_patch_transform(p1, ws.desc_cfg),
             batch_patch_transform(p2, ws.desc_cfg)))
-        d = part("ring_distances", lambda: ring_distances(filters, pt1, pt2))
+        d = part("ring_distances", lambda: dists(pt1, pt2))
         del p1, p2, pt1, pt2
         d = part("to_host", lambda: d.cpu().numpy())
         ok = part("finite_check", lambda: bool(np.all(np.isfinite(d))))
@@ -148,10 +162,12 @@ def prepare(ws, ds: str) -> dict:
     out["generate_seconds"] = time.perf_counter() - t0
     if ws._dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ws._dev)
+    ring_distances_fused.launches = 0
     t0 = time.perf_counter()
     ws.compdist(ds)
     sync(ws._dev)
     out["compdist_seconds"] = time.perf_counter() - t0
+    out["compdist_kernel_a_launches"] = ring_distances_fused.launches
     out["compdist_device_peak_bytes"] = (
         torch.cuda.max_memory_allocated(ws._dev)
         if ws._dev.type == "cuda" else None)
@@ -181,10 +197,16 @@ def main(argv=None):
                     help="first write the dataset (stage 1, at the e2e "
                          "command's default size and seed) and its stage "
                          "3, timed, where the workspace lacks them")
+    ap.add_argument("--matmul-precision", choices=("highest", "default"),
+                    default="highest",
+                    help="stage 3's DescriptorConfig.matmul_precision: "
+                         "default takes kernel A")
     ap.add_argument("--out-json", required=True)
     args = ap.parse_args(argv)
     ws = Workspace(args.workspace, pair_block=args.pair_block,
-                   progress=False, device=args.device)
+                   progress=False, device=args.device,
+                   desc_cfg=DescriptorConfig(
+                       matmul_precision=args.matmul_precision))
     prepared = prepare(ws, args.ds) if args.prepare else None
     t0 = time.perf_counter()
     with ArtifactStore(ws.path("dataset", f"{args.ds}.h5"), "r") as st:
@@ -200,6 +222,7 @@ def main(argv=None):
            "dataset": args.ds, "n_pairs": int(n_pairs),
            "pair_block": ws.pair_block, "blocks": args.blocks,
            "precision": ws.desc_cfg.matmul_precision,
+           "route": "kernel_A" if ws._stage3_bank()[1] else "f32",
            "load_seconds": load, "prepare": prepared}
     paths = []
     try:
@@ -207,6 +230,7 @@ def main(argv=None):
                         ("program", None), ("profiled", profiled_blocks)):
             st = scratch_store(ws, shape, tag)
             paths.append(st.path)
+            ring_distances_fused.launches = 0
             with st:
                 if fn is None:
                     t0 = time.perf_counter()
@@ -216,6 +240,7 @@ def main(argv=None):
                     out[tag] = {"seconds": time.perf_counter() - t0}
                 else:
                     out[tag] = fn(ws, st, indices, patches, args.blocks)
+            out[tag]["kernel_a_launches"] = ring_distances_fused.launches
             with ArtifactStore(st.path, "r") as got, \
                     ArtifactStore(ws.dist_path(args.ds), "r") as want:
                 n = args.blocks * ws.pair_block

@@ -3,13 +3,26 @@ its seconds, peak host memory and peak device memory, and the kernel
 launches of the whole run.
 
     python tools/e2e_memory_run.py -w <fresh workspace> \
-        --out-json E2E_M50_torch.json --mem-json <path>
+        --out-json E2E_M50_torch.json --mem-json <path> \
+        [--n-pairs N] [--pj-iters N] [--matmul-precision default]
 
 The command is ``opencv_dlco_tpu_torch.cli.main(["e2e", "-w", <ws>,
-"--out-json", <out>])``: the ``e2e`` command at its defaults (3 x 500,000
-pairs, 50,000 PJ iterations). Nothing in the
-package is switched: the stage functions ``run_full`` calls are wrapped
-here for the duration of the run, and the outermost call of each records
+"--out-json", <out>, ...])``: the ``e2e`` command at its defaults (3 x
+500,000 pairs, 50,000 PJ iterations) unless ``--n-pairs`` / ``--pj-iters``
+are given, which pass through to it. The workspace must hold no stage-3
+artifact: compdist reuses a complete one whatever precision wrote it.
+
+``--matmul-precision default`` runs stage 3 on the bf16 route (kernel A,
+and stage 7's products on bf16 operands): while the run lasts,
+``stages.Workspace`` is a subclass whose ``desc_cfg`` defaults to
+``DescriptorConfig(matmul_precision="default")`` (``run_reference_scale``
+imports it at call time). Both JSONs then name the precision and the
+route stage 3 took (``stage3_route``, from the calls ``_dist_rows`` made
+to ``ring_distances_fused`` and to the f32 ``ring_distances``).
+
+Nothing else in the package is switched: the stage functions
+``run_full`` calls are wrapped here for the duration of the run, and the
+outermost call of each records
 
 - ``seconds``: host clock from entry to exit (the card synchronised at
   both ends);
@@ -27,6 +40,8 @@ workspace's disk use and the host's memory and disk before and after.
 """
 
 import argparse
+import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -48,6 +63,8 @@ from opencv_dlco_tpu_torch.ops.pair_distance_fused import (  # noqa: E402
     ring_distances_fused)
 from opencv_dlco_tpu_torch.parallel import sweep             # noqa: E402
 from opencv_dlco_tpu_torch.pipeline import e2e, stages      # noqa: E402
+from opencv_dlco_tpu_torch.utils.configs import (            # noqa: E402
+    DescriptorConfig)
 
 WRAPPERS = {"A": ring_distances_fused,
             "B": fused_rda.fused_block_train_wide,
@@ -189,6 +206,71 @@ def install(sampler: Sampler, records: dict):
     return restore
 
 
+@contextlib.contextmanager
+def stage3_precision(precision: str):
+    """While the block runs, ``stages.Workspace`` is a subclass whose
+    ``desc_cfg`` defaults to ``DescriptorConfig(matmul_precision=
+    precision)``; "highest" leaves it as it is."""
+    base = stages.Workspace
+    if precision != "highest":
+        opted = dataclasses.make_dataclass(
+            f"Workspace_{precision}",
+            [("desc_cfg", DescriptorConfig,
+              dataclasses.field(default=DescriptorConfig(
+                  matmul_precision=precision)))],
+            bases=(base,))
+        stages.Workspace = opted
+    try:
+        yield
+    finally:
+        stages.Workspace = base
+
+
+ROUTES = {"ring_distances_fused": "kernel_A", "ring_distances": "f32"}
+
+
+@contextlib.contextmanager
+def stage3_route():
+    """Counts the calls ``Workspace._dist_rows`` makes to each ring-distance
+    route while the block runs; yields the counts, keyed by ``ROUTES``'
+    names."""
+    calls = {name: 0 for name in ROUTES.values()}
+    saved = {attr: getattr(stages, attr) for attr in ROUTES}
+
+    def counted(attr, inner):
+        @functools.wraps(inner)
+        def call(*a, **kw):
+            calls[ROUTES[attr]] += 1
+            return inner(*a, **kw)
+        return call
+
+    for attr, inner in saved.items():
+        setattr(stages, attr, counted(attr, inner))
+    try:
+        yield calls
+    finally:
+        for attr, inner in saved.items():
+            setattr(stages, attr, inner)
+
+
+def route_name(calls: dict) -> str:
+    """The one route stage 3 took: "kernel_A" or "f32"; raises if both or
+    neither ran."""
+    taken = [name for name, n in calls.items() if n]
+    if len(taken) != 1:
+        raise RuntimeError(f"stage 3 took {taken or 'no'} route: {calls}")
+    return taken[0]
+
+
+def stage3_artifacts(root: str) -> list:
+    """The stage-3 outputs a workspace already holds."""
+    d = os.path.join(root, "distances")
+    if not os.path.isdir(d):
+        return []
+    return sorted(n for n in os.listdir(d)
+                  if n.endswith(("-dist.h5", "-dist.shards")))
+
+
 def card_line() -> str:
     try:
         return subprocess.run(
@@ -205,12 +287,30 @@ def main(argv=None):
     ap.add_argument("--out-json", required=True)
     ap.add_argument("--mem-json", required=True)
     ap.add_argument("--sample-s", type=float, default=0.2)
+    ap.add_argument("--n-pairs", type=int, default=None,
+                    help="passed to the e2e command (its default: 500,000)")
+    ap.add_argument("--pj-iters", type=int, default=None,
+                    help="passed to the e2e command (its default: 50,000)")
+    ap.add_argument("--matmul-precision", choices=("highest", "default"),
+                    default="highest",
+                    help="stage 3's DescriptorConfig.matmul_precision for "
+                         "the run: default takes kernel A")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("e2e_memory_run: no CUDA device")
+    used = stage3_artifacts(args.workspace)
+    if used:
+        raise SystemExit(f"e2e_memory_run: {args.workspace} already holds "
+                         f"stage-3 output {used}; compdist would reuse it "
+                         f"whatever its precision: use a fresh workspace")
     os.makedirs(args.workspace, exist_ok=True)
-    facts = {"card": card_line(), "argv": ["e2e", "-w", args.workspace,
-                                           "--out-json", args.out_json],
+    argv_e2e = ["e2e", "-w", args.workspace, "--out-json", args.out_json]
+    for flag, val in (("--n-pairs", args.n_pairs),
+                      ("--pj-iters", args.pj_iters)):
+        if val is not None:
+            argv_e2e += [flag, str(val)]
+    facts = {"card": card_line(), "argv": argv_e2e,
+             "matmul_precision": args.matmul_precision,
              "host_before": host_facts(args.workspace)}
     print("e2e_memory_run:", json.dumps(facts), flush=True)
 
@@ -222,12 +322,22 @@ def main(argv=None):
         w.launches = 0
     t0 = time.perf_counter()
     try:
-        cli.main(facts["argv"])
+        with stage3_precision(args.matmul_precision), \
+                stage3_route() as calls:
+            cli.main(facts["argv"])
     finally:
         restore()
         sampler.stop()
     facts["wall_seconds"] = time.perf_counter() - t0
+    facts["stage3_calls"] = calls
+    facts["stage3_route"] = route_name(calls)
     facts["launches"] = {k: w.launches for k, w in WRAPPERS.items()}
+    with open(args.out_json) as fh:
+        summary = json.load(fh)
+    summary.update(matmul_precision=args.matmul_precision,
+                   stage3_route=facts["stage3_route"])
+    with open(args.out_json, "w") as fh:
+        json.dump(summary, fh, indent=1, sort_keys=True)
     facts["stages"] = records
     facts["ru_maxrss_bytes"] = resource.getrusage(
         resource.RUSAGE_SELF).ru_maxrss * 1024
