@@ -399,25 +399,41 @@ def test_optimize_pose_graph_matches_jax(robust):
     assert costs[-1] < costs[0] * (0.1 if robust == "none" else 0.5)
 
 
-@pytest.mark.parametrize("robust", ["none", "dcs"])
-def test_optimize_pose_graph_sim3_matches_jax(robust):
-    args = _drift_scene()
+@pytest.mark.parametrize("robust, dtype", [("none", np.float64),
+                                           ("dcs", np.float32)],
+                         ids=["none", "dcs"])
+def test_optimize_pose_graph_sim3_matches_jax(robust, dtype):
+    """The Sim(3) pose graph against JAX on the drift scene. Without a
+    robust kernel the f32 solve is ill-conditioned in scale: its R, t and s
+    follow the last bits of torch's f32 reductions, whose order changes
+    with the thread count (1.3e-4 apart at 1 and 8 threads), so that case
+    is compared in float64 on both sides, where the packages agree to
+    ~1e-15 at any thread count. The f32 path is held by the dcs case."""
+    args = [a.astype(dtype) if a.dtype == np.float32 else a
+            for a in _drift_scene()]
     e = args[2].shape[0]
-    s_z = np.ones(e, np.float32)
+    s_z = np.ones(e, dtype)
     s_z[-4:] = [1.1, 0.9, 1.05, 1.0]
     kw = dict(n_iters=10)
     if robust != "none":
         kw.update(robust=robust, robust_delta=0.0, gnc_iters=4)
-    ref = jg.optimize_pose_graph_sim3(*(jnp.asarray(a) for a in args),
-                                      None, jnp.asarray(s_z), **kw)
+    with jax.enable_x64(dtype == np.float64):
+        ref = jg.optimize_pose_graph_sim3(*(jnp.asarray(a) for a in args),
+                                          None, jnp.asarray(s_z), **kw)
     ours = tg.optimize_pose_graph_sim3(*(torch.from_numpy(a) for a in args),
-                                       None, _t(s_z), **kw)
-    for a, b in zip(ours[:3], ref[:3]):
-        _close(a, b, rtol=1e-4, atol=1e-4)
-    # the cost history: its end at 1e-4; the first LM steps, far from the
-    # optimum, carry f32 rounding of the large early residuals to 1e-3
-    _close(ours.cost_history[-1], ref.cost_history[-1], rtol=1e-4)
-    _close(ours.cost_history, ref.cost_history, rtol=1e-3)
+                                       None, torch.from_numpy(s_z), **kw)
+    assert ours[0].numpy().dtype == np.asarray(ref[0]).dtype == dtype
+    if dtype == np.float64:
+        for a, b in zip(ours[:3], ref[:3]):
+            _close(a, b, rtol=1e-9, atol=1e-9)
+        _close(ours.cost_history, ref.cost_history, rtol=1e-9)
+    else:
+        for a, b in zip(ours[:3], ref[:3]):
+            _close(a, b, rtol=1e-4, atol=1e-4)
+        # the cost history: its end at 1e-4; the first LM steps, far from
+        # the optimum, carry f32 rounding of the large early residuals
+        _close(ours.cost_history[-1], ref.cost_history[-1], rtol=1e-4)
+        _close(ours.cost_history, ref.cost_history, rtol=1e-3)
     assert abs(float(ours.s[0]) - 1.0) < 1e-3        # gauge
 
 
