@@ -112,14 +112,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    its JSON written into the smoke's workspace. Counts are set to 0 just
    before and read just after; it fails unless B launched there, the
    summary's keys equal those of the committed ``E2E_FULL_torch.json`` at
-   every level and all four exports are ok. Its stage 3 takes the f32
-   route, as the JAX package's run_reference_scale does (the default
-   DescriptorConfig's precision is "highest"), so A does not launch there.
+   every level and all four exports are ok. Its stage 3 runs at the
+   default DescriptorConfig's precision "highest", as the JAX package's
+   run_reference_scale does: kernel A's f32 mode, and the run fails unless
+   A launched in that mode once a stage-3 block (3, one 8,192-pair block a
+   dataset) and in no other.
    Then the same run once more, in a fresh workspace, on the bf16 route
    through tools/e2e_memory_run.py's ``--matmul-precision default`` (its
    Workspace swap): counts set to 0 just before and read just after, it
-   fails unless A launched once a stage-3 block (3, one 8,192-pair block a
-   dataset) and the f32 route never ran, the same checks hold, and its
+   fails unless A launched once a stage-3 block in its bf16 mode and no
+   other route ran, the same checks hold, and its
    best PR row's and each PJ winner's mean FPR95 lie within 0.5 and 1.0
    pp of the f32 run's (tests/test_torch_e2e_artifact.py's tolerances).
    Both runs' stage seconds are printed; their launches join the kernels
@@ -132,7 +134,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    each kNN kernel call of the evaluation against the plain version.
 7. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (A at the 256- and 8,192-pair blocks of compdist
-   and run_reference_scale and at a small block of 64 pairs, B at 1 and
+   and run_reference_scale and at a small block of 64 pairs, A's f32 mode
+   at 256 and 8,192 pairs by the worst row's relative L2 error, with the
+   f32 route it replaced and one cuBLAS product of the same operands in
+   the folded layout as yardsticks and the device time of its launches at
+   8,192 pairs, B at 1 and
    48 steps of the PR grid with each of its three kernels' device time a
    step from torch.profiler, C at S 1 and 8 and D with their device time
    a step and launches a call, E at the bench's P = N = 50,000 and at
@@ -200,6 +206,11 @@ TOL_RING = (1e-4, 1e-5)
 # kernel A's timed pair blocks: a small block, Workspace.pair_block (this
 # script's compdist), run_reference_scale's pair_block
 A_PAIRS = (64, 256, 8192)
+# ... of its f32 mode, and the limit on its worst row's relative L2 error
+# against the plain version in f32 (TF32 off): a 3xTF32 product leaves
+# ~1e-6, bf16 operands ~1e-3
+A_F32_PAIRS = (256, 8192)
+A_F32_ROW_ERR = 1e-5
 # stage 3's bf16 rows against the f32 route's on the same pairs: the
 # median of |bf16 - f32| / (|f32| + 1e-6), as bench_precision_fpr95
 # reports it, under tests/test_precision.py's median bound
@@ -336,7 +347,8 @@ def ptxas_summary(cuda_build):
                 lines.append(f"  ptxas[{lib}] {name}: " + json.dumps(facts))
             if "Performance Loss" in line:
                 lines.append(f"  ptxas[{lib}] note: {line.strip()}")
-    libs = {"ring_dist": [("ring_dist_wgmma", (0,))],
+    libs = {"ring_dist": [("ring_dist_wgmma", (0,)),
+                          ("ring_dist_wgmma f32", (1,))],
             "rda_wide": [("wide_f_wgmma", (1,)), ("wide_df_wgmma", (2,))],
             # kernel C at the single-run width, f32 and bf16 rows
             "rda_narrow": [("narrow_persistent (F 5120, f32)", (5120, 4)),
@@ -660,13 +672,20 @@ def check_slice2(torch, np, out):
                                   for w, (e, tol) in held.items()}, **ev)
 
 
+def row_err(got, ref):
+    """The worst row's relative L2 error of ``got`` against ``ref``."""
+    return float(((got - ref).norm(dim=1)
+                  / ref.norm(dim=1).clamp_min(1e-30)).max())
+
+
 def kernel_checks(torch, ws, dist):
     """Each kernel against its plain version at the main path's shapes,
     with times, bounds and the torch.matmul yardstick."""
     from opencv_dlco_tpu_torch.data.store import ArtifactStore
     from opencv_dlco_tpu_torch.ops import fused_rda as fr
+    from opencv_dlco_tpu_torch.ops.pair_distance import ring_distances
     from opencv_dlco_tpu_torch.ops.pair_distance_fused import (
-        ring_distances_fused, ring_distances_plain)
+        ring_distances_fused, ring_distances_plain, split_bank)
     from opencv_dlco_tpu_torch.ops.patch_transform import (
         batch_patch_transform)
     from opencv_dlco_tpu_torch.utils.configs import PRSweepGrid
@@ -720,6 +739,57 @@ def kernel_checks(torch, ws, dist):
         del pt1, pt2, cols
         torch.cuda.empty_cache()
     del f16
+
+    # -- A's f32 mode: the bank split once (as _stage3_bank does), the
+    # columns split in each call; the plain version (f32, TF32 off) in
+    # blocks of 256 pairs
+    f32 = torch.from_numpy(ws.load_filters()).to(dev)
+    planes = split_bank(f32)
+    for b in A_F32_PAIRS:
+        pt1, pt2 = (batch_patch_transform(torch.from_numpy(
+            patches[idx[:b, c]]).to(dev)) for c in (0, 2))
+        got = ring_distances_fused(planes, pt1, pt2)
+        err = max(row_err(got[s0:s0 + 256], ring_distances_plain(
+            f32, pt1[s0:s0 + 256], pt2[s0:s0 + 256]))
+            for s0 in range(0, b, 256))
+        if not err <= A_F32_ROW_ERR:
+            raise AssertionError(f"A f32[{b} pairs]: worst row's relative "
+                                 f"L2 error {err} (limit {A_F32_ROW_ERR})")
+        finite = bool(torch.isfinite(got).all())
+        del got
+        bnd, by = bound_ms(nf * npix * 4 + 2 * b * npix * 8 * 4
+                           + b * (nf // 8) * 4,
+                           3 * 2 * 2 * nf * npix * 8 * b, "tf32")
+        reps = 10 if b <= 256 else 3
+        row = dict(
+            name="ring_distances_fused (f32 mode)", route="cuda",
+            source="opencv_dlco_tpu_torch/csrc/ring_dist.cu",
+            replaces="opencv_dlco_tpu/ops/pair_distance_pallas.py:53",
+            max_row_rel_l2=err, finite=finite,
+            ms=time_ms(torch, lambda: ring_distances_fused(
+                planes, pt1, pt2), reps),
+            plain_ms=(time_ms(torch, lambda: ring_distances_plain(
+                f32, pt1, pt2), 3) if b <= 256 else None),
+            bound_ms=bnd, bound_by=by,
+            bound_ffma_ms=bound_ms(0, 2 * 2 * nf * npix * 8 * b, "f32")[0],
+            route_f32_ms=time_ms(torch, lambda: ring_distances(
+                f32, pt1, pt2), 3 if b <= 256 else 1),
+            shape=f"F {nf}x{npix} f32 (split once), {b} pairs" + (
+                "" if b <= 256 else "; plain version held in blocks of 256 "
+                "pairs, not timed"))
+        cols = torch.cat([pt1, pt2]).transpose(0, 1).reshape(npix, -1) \
+            .contiguous()
+        row["library_ms"] = time_ms(torch, lambda: torch.matmul(f32, cols),
+                                    reps if b <= 256 else 1)
+        del cols
+        torch.cuda.empty_cache()
+        if b > 256:
+            row["profiler"] = profile_calls(
+                torch, lambda: ring_distances_fused(planes, pt1, pt2), 2)
+        results[f"Af32_{b}"] = row
+        del pt1, pt2
+        torch.cuda.empty_cache()
+    del f32, planes
 
     # -- B, C, D on the main path's splits ----------------------------------
     data = ws._load_split(dist, 0.8, 2215)
@@ -1932,7 +2002,8 @@ def check_e2e_bf16_phase(np, bf16, f32, calls, launches, card):
     the f32 run's checks, and its end metrics within the gates of the f32
     run's."""
     n_blocks = len(bf16["datasets"]) * -(-bf16["n_pairs"] // 8192)
-    if not launches["A"] == calls["kernel_A"] == n_blocks or calls["f32"]:
+    if (not launches["A"] == calls["kernel_A"] == n_blocks or calls["f32"]
+            or calls["kernel_A_f32"] or launches["A_f32"]):
         raise AssertionError(f"bf16 e2e: A launched {launches['A']} times, "
                              f"stage-3 calls {calls}, {n_blocks} blocks")
     facts = check_e2e_phase(np, bf16, card)
@@ -2298,11 +2369,14 @@ def main() -> int:
 
         def counted(fn, *a):
             """Run one path with every count set to 0 just before it and
-            read just after."""
+            read just after (A: kernel A's bf16 mode, A_f32: its f32
+            mode)."""
             for w in wrappers.values():
                 w.launches = 0
+            ring_distances_fused.launches_f32 = 0
             result = fn(*a)
-            return result, {k: w.launches for k, w in wrappers.items()}
+            return result, {**{k: w.launches for k, w in wrappers.items()},
+                            "A_f32": ring_distances_fused.launches_f32}
 
         # the stages' own log lines (one per step, stat and model row) go
         # to a file; this script prints the summary
@@ -2466,12 +2540,17 @@ def main() -> int:
               flush=True)
         print("e2e launches:", json.dumps(launches7), flush=True)
         # stage 3 of the e2e command runs at DescriptorConfig's default
-        # precision, "highest": the f32 product, as the JAX package's
-        # run_reference_scale does (kernel A is the route of any other
-        # precision, phase 2's)
+        # precision, "highest", as the JAX package's run_reference_scale
+        # does: kernel A's f32 mode, once a block
         if launches7["B"] == 0:
             raise AssertionError("kernel B never launched in the e2e "
                                  "command")
+        n_blocks7 = len(e2e_summary["datasets"]) * -(
+            -e2e_summary["n_pairs"] // 8192)
+        if launches7["A"] or launches7["A_f32"] != n_blocks7:
+            raise AssertionError(f"e2e: A launched {launches7['A']} times "
+                                 f"in its bf16 mode and {launches7['A_f32']}"
+                                 f" in its f32 mode, {n_blocks7} blocks")
         print("e2e:", json.dumps(check_e2e_phase(np, e2e_summary, card)),
               flush=True)
         shutil.rmtree(os.path.join(root, "e2e"), ignore_errors=True)
@@ -2536,7 +2615,8 @@ def main() -> int:
         print("kernel shares:", json.dumps(kernel_shares(
             secs, launches, res)), flush=True)
         table = []
-        for key, row in (("A", "A256"), ("B", f"B{STEPS_PER_LOG}"),
+        for key, row in (("A", "A256"), ("A_f32", "Af32_8192"),
+                         ("B", f"B{STEPS_PER_LOG}"),
                          ("C", "C1"), ("D", "D"), ("E", "E"), ("F", "Feval"),
                          ("G", "G"), ("H", "H64")):
             r = {k: v for k, v in res[row].items()
@@ -2545,7 +2625,8 @@ def main() -> int:
                               "issue_floor_ms", "sm_mhz_under_load",
                               "issue_floor_at_that_clock_ms", "slices",
                               "launches_per_call", "bytes_per_step",
-                              "profiler", "pose_chunks")}
+                              "profiler", "pose_chunks",
+                              "max_row_rel_l2", "finite")}
             table.append({**r, "launches": launches[key] + launches2[key]
                           + launches3[key] + launches4[key]
                           + launches5[key] + launches6[key]

@@ -1,5 +1,5 @@
 // Shared device helpers of the port's kernels: the bf16 type, bf16
-// differences and rounding to a storage type.
+// differences, rounding to a storage type and to tf32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,4 +30,13 @@ __device__ __forceinline__ float round_to<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float round_to<bf16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x rounded to tf32, to nearest with ties away from zero: the value
+// cvt.rna.tf32.f32 gives, low 13 mantissa bits zero (inf and nan as they
+// are)
+__device__ __forceinline__ float tf32_rna(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7f800000u) == 0x7f800000u) return x;
+  return __uint_as_float((u + 0x1000u) & 0xffffe000u);
 }

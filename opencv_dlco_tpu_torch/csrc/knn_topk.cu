@@ -181,15 +181,6 @@ __host__ __device__ constexpr int split_width(int d) {
   return d < KC32 ? KC32 : (d + 3) & ~3;
 }
 
-// x rounded to tf32, to nearest with ties away from zero: the value
-// cvt.rna.tf32.f32 gives, low 13 mantissa bits zero (inf and nan as they
-// are)
-__device__ __forceinline__ float tf32_rna(float x) {
-  const uint32_t u = __float_as_uint(x);
-  if ((u & 0x7f800000u) == 0x7f800000u) return x;
-  return __uint_as_float((u + 0x1000u) & 0xffffe000u);
-}
-
 __device__ __forceinline__ bool lex_less(float d, int i, float e, int j) {
   return d < e || (d == e && i < j);
 }

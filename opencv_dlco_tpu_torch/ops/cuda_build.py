@@ -44,7 +44,10 @@ _L = ctypes.c_longlong
 #: C entry points of each library: {symbol: (argtypes, restype)}
 SIGNATURES = {
     "ring_dist": {"ring_dist_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P],
-                                       _I)},
+                                       _I),
+                  "ring_split_bank_launch": ([_P, _P, _L, _P], _I),
+                  "ring_dist_f32_launch": ([_P, _P, _P, _P, _P, _I, _I, _I,
+                                            _P], _I)},
     "rda_wide": {"rda_wide_train": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _P], _I)},

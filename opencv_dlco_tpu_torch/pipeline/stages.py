@@ -51,7 +51,8 @@ from ..models.select import (
     select_pr_filters,
 )
 from ..ops.pair_distance import ring_distances, unprojected_diffs
-from ..ops.pair_distance_fused import TF, TK, ring_distances_fused
+from ..ops.pair_distance_fused import (TF, TK, kernel_bank,
+                                       ring_distances_fused)
 from ..ops.patch_transform import batch_patch_transform
 from ..ops.pool_regions import build_filter_bank
 from ..parallel.distributed import (
@@ -90,6 +91,30 @@ def _open_if_sound(path: str):
         if is_lock_error(err):
             raise
         return None
+
+
+def stage3_route(matmul_precision: str, bank_shape, cuda: bool) -> str:
+    """The ring-distance route of stage 3 for a bank of ``bank_shape``
+    (n_filters, n_pixels), on a CUDA device or not: kernel A where the bank
+    fits its tiles, in its bf16 mode ("kernel_A") at any precision but
+    "highest" and, on a CUDA device, in its f32 mode ("kernel_A_f32") at
+    "highest"; else the f32 product of ops/pair_distance.py ("f32"). Off
+    the card kernel A's f32 mode is that product itself, so "highest"
+    takes it directly there."""
+    nf, npix = bank_shape
+    if nf % TF or npix % TK:
+        return "f32"
+    if matmul_precision != "highest":
+        return "kernel_A"
+    return "kernel_A_f32" if cuda else "f32"
+
+
+def stage3_distances(filters, route: str, pt1, pt2):
+    """One block's ring distances on ``route``, the bank as
+    ``Workspace._stage3_bank`` prepared it."""
+    if route == "f32":
+        return ring_distances(filters, pt1, pt2)
+    return ring_distances_fused(filters, pt1, pt2, bf16=route == "kernel_A")
 
 
 @dataclass
@@ -218,23 +243,21 @@ class Workspace:
         return out
 
     def _stage3_bank(self):
-        """The bank on the device and whether stage 3 takes kernel A.
-
-        precision "highest" runs the f32 route (ops/pair_distance.py); any
-        other precision takes kernel A (bf16 inputs, f32 accumulation) when
-        the bank's shape fits its tiles, the bank then cast to bf16 here,
-        once per call, not once per block."""
+        """The bank on the device, prepared for the route stage 3 takes
+        (``stage3_route``), and that route's name. Kernel A's bank is cast
+        to bf16 or split into tf32 planes here, once per call, not once per
+        block (``kernel_bank``)."""
         filters = torch.from_numpy(self.load_filters()).to(self._dev)
-        nf, npix = filters.shape
-        use_fused = (self.desc_cfg.matmul_precision != "highest"
-                     and nf % TF == 0 and npix % TK == 0)
-        return (filters.to(torch.bfloat16) if use_fused else filters,
-                use_fused)
+        route = stage3_route(self.desc_cfg.matmul_precision, filters.shape,
+                             filters.device.type == "cuda")
+        if route != "f32":
+            filters = kernel_bank(filters, bf16=route == "kernel_A")
+        return filters, route
 
     def _dist_rows(self, st, indices, patches, lo: int, hi: int, bar=None):
         """Compute + write distance rows [lo, hi) into ``st``, on the
         route ``_stage3_bank`` picks."""
-        filters, use_fused = self._stage3_bank()
+        filters, route = self._stage3_bank()
         blk = self.pair_block
         for s in range(lo, hi, blk):
             e = min(s + blk, hi)
@@ -242,11 +265,7 @@ class Workspace:
             p2 = torch.from_numpy(patches[indices[s:e, 2]]).to(self._dev)
             pt1 = batch_patch_transform(p1, self.desc_cfg)
             pt2 = batch_patch_transform(p2, self.desc_cfg)
-            if use_fused:
-                d = ring_distances_fused(filters, pt1, pt2, bf16=True)
-            else:
-                d = ring_distances(filters, pt1, pt2)
-            d = d.cpu().numpy()
+            d = stage3_distances(filters, route, pt1, pt2).cpu().numpy()
             if not np.all(np.isfinite(d)):
                 raise FloatingPointError(
                     f"Distance contains NaN/Inf in rows [{s}, {e})"

@@ -7,6 +7,8 @@ holds the same kernels against the same plain versions at the shapes of
 the main path.
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ from opencv_dlco_tpu_torch.ops import hinge, knn_fused
 from opencv_dlco_tpu_torch.ops.pair_distance_fused import (
     ring_distances_fused,
     ring_distances_plain,
+    split_bank,
 )
 from opencv_dlco_tpu_torch.ops.patch_transform import batch_patch_transform
 from opencv_dlco_tpu_torch.ops.pool_regions import build_filter_bank
@@ -79,6 +82,123 @@ def test_kernel_a_matches_plain_on_ragged_tiles(dev, nf, n_pairs):
     assert out.shape == (n_pairs, nf // 8)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-4, atol=1e-5)
+
+
+#: kernel A's f32 mode against the plain version in f32 (TF32 off): the
+#: worst row's relative L2 error (a 3xTF32 product leaves ~1e-6)
+A_F32_ROW_ERR = 1e-5
+#: sha256 of the bf16 mode's rows on _fixed_bf16_input, as the kernel
+#: before the f32 mode gave them (NVIDIA H100 80GB HBM3)
+A_BF16_FIXED_SHA256 = ("dbeea40f11b0faaa76561b83634cad06"
+                       "306793bca8a9fbbda2ffaa28996600e5")
+
+
+def _row_err(got, ref):
+    return float(((got - ref).norm(dim=1)
+                  / ref.norm(dim=1).clamp_min(1e-30)).max())
+
+
+def _pairs(dev, n_pairs, seed):
+    rng = np.random.default_rng(seed)
+    patches = torch.from_numpy(rng.integers(0, 256, (2 * n_pairs, 64, 64),
+                                            dtype=np.uint8)).to(dev)
+    pt = batch_patch_transform(patches)
+    return pt[:n_pairs], pt[n_pairs:]
+
+
+@pytest.fixture(scope="module")
+def m50_bank(dev):
+    """The m50 bank (40,960 filters x 4,096 pixels) and its split planes."""
+    _, _, bank = build_filter_bank(PoolRegionConfig())
+    f = torch.from_numpy(bank).to(dev)
+    return f, split_bank(f)
+
+
+@pytest.mark.parametrize("n_pairs", [256, 8192])
+def test_kernel_a_f32_matches_plain_at_the_m50_bank(dev, m50_bank, n_pairs):
+    f, planes = m50_bank
+    pt1, pt2 = _pairs(dev, n_pairs, n_pairs)
+    before = (ring_distances_fused.launches,
+              ring_distances_fused.launches_f32)
+    out = ring_distances_fused(planes, pt1, pt2)
+    assert (ring_distances_fused.launches,
+            ring_distances_fused.launches_f32) == (before[0],
+                                                   before[1] + 1)
+    assert out.shape == (n_pairs, 5120)
+    # the plain version in blocks of 256 pairs (its whole-block f32
+    # products at 8,192 pairs would take ~21 GB)
+    for s0 in range(0, n_pairs, 256):
+        ref = ring_distances_plain(f, pt1[s0:s0 + 256], pt2[s0:s0 + 256])
+        assert _row_err(out[s0:s0 + 256], ref) <= A_F32_ROW_ERR, s0
+    # the bank split in the call gives the same rows
+    assert torch.equal(ring_distances_fused(f, pt1[:40], pt2[:40]),
+                       out[:40])
+
+
+@pytest.mark.parametrize("nf,n_pairs", [(1024, 37), (2560, 45), (1152, 19),
+                                        (1024, 1)])
+def test_kernel_a_f32_on_ragged_tiles(dev, nf, n_pairs):
+    """Pair counts that are not a multiple of the f32 mode's 8-pair tile,
+    at 8, 20 (a full raster group and a partial one) and 9 filter tiles."""
+    rng = np.random.default_rng(nf * n_pairs)
+    if nf == 1024:
+        _, _, bank = build_filter_bank(PoolRegionConfig(nr=16, nphi=2,
+                                                        nsigma=4))
+    else:  # ring-like rows: nonnegative weights that sum to ~1
+        bank = rng.random((nf, 4096)).astype(np.float32) * (2.0 / 4096)
+    f = torch.from_numpy(bank).to(dev)
+    pt1, pt2 = _pairs(dev, n_pairs, nf + n_pairs)
+    out = ring_distances_fused(f, pt1, pt2)
+    ref = ring_distances_plain(f, pt1, pt2)
+    assert out.shape == (n_pairs, nf // 8)
+    assert _row_err(out, ref) <= A_F32_ROW_ERR
+
+
+def test_kernel_a_f32_straddles_the_truncation(dev):
+    """Transforms scaled so that about half the pooled values pass 1: the
+    truncation cuts them in the kernel's arithmetic as in the plain
+    version's."""
+    _, _, bank = build_filter_bank(PoolRegionConfig(nr=16, nphi=2, nsigma=4))
+    f = torch.from_numpy(bank).to(dev)
+    pt1, pt2 = _pairs(dev, 40, 5)
+    scale = 1.0 / float(torch.matmul(f, pt1).median())
+    pt1, pt2 = pt1 * scale, pt2 * scale
+    cut = float((torch.matmul(f, pt1) > 1).float().mean())
+    assert 0.3 < cut < 0.7, cut
+    out = ring_distances_fused(f, pt1, pt2)
+    ref = ring_distances_plain(f, pt1, pt2)
+    assert _row_err(out, ref) <= A_F32_ROW_ERR
+
+
+def test_kernel_a_f32_keeps_a_nan(dev):
+    """A NaN in one pair's patch transform gives that pair a non-finite
+    row (so stage 3's finite check fires) and leaves the others."""
+    _, _, bank = build_filter_bank(PoolRegionConfig(nr=16, nphi=2, nsigma=4))
+    f = torch.from_numpy(bank).to(dev)
+    pt1, pt2 = _pairs(dev, 20, 3)
+    pt1 = pt1.clone()
+    pt1[11, 1234, 5] = float("nan")
+    out = ring_distances_fused(f, pt1, pt2)
+    finite = torch.isfinite(out).all(dim=1).cpu().numpy()
+    assert not finite[11] and finite.sum() == 19
+    keep = torch.from_numpy(finite).to(dev)
+    ref = ring_distances_plain(f, pt1[keep], pt2[keep])
+    assert _row_err(out[keep], ref) <= A_F32_ROW_ERR
+
+
+def _fixed_bf16_input(dev):
+    """The small bank and 24 pairs of transforms drawn from a fixed seed."""
+    _, _, bank = build_filter_bank(PoolRegionConfig(nr=16, nphi=2, nsigma=4))
+    rng = np.random.default_rng(2215)
+    pt = rng.random((48, 4096, 8)).astype(np.float32) * 2.0
+    return torch.from_numpy(bank).to(dev), torch.from_numpy(pt).to(dev)
+
+
+def test_kernel_a_bf16_rows_unchanged(dev):
+    f, pt = _fixed_bf16_input(dev)
+    out = ring_distances_fused(f, pt[:24], pt[24:], bf16=True)
+    got = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    assert got == A_BF16_FIXED_SHA256
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -188,10 +308,15 @@ def test_wrappers_raise_on_shapes_the_kernels_cannot_take(dev):
                                   [[0, 0]], batch=192, tile_b=64)
     f = torch.zeros((1024, 4096), device=dev)
     pt = torch.zeros((2, 4096, 8), device=dev)
-    with pytest.raises(NotImplementedError):
-        ring_distances_fused(f, pt, pt, bf16=False)
+    with pytest.raises(ValueError):  # split planes are the f32 mode's
+        ring_distances_fused(split_bank(f), pt, pt, bf16=True)
+    with pytest.raises(ValueError):  # planes (3, ...) are no split bank
+        ring_distances_fused(torch.zeros((3, 1024, 4096), device=dev), pt,
+                             pt)
     with pytest.raises(ValueError):  # a multiple of 64 filters, not of 128
         ring_distances_fused(f[:192], pt, pt, bf16=True)
+    with pytest.raises(ValueError):
+        ring_distances_fused(f[:192], pt, pt)
 
 
 # P = N = 50,000 (the bench's shape) and 8,192; P on both sides of a

@@ -166,7 +166,8 @@ def test_memory_run_bf16_names_precision_and_route(bf16_tool_run):
         assert rec["stage3_route"] == "kernel_A"
     n_ds = len(run["summary"]["datasets"])
     # one 8,192-pair block a dataset of 200 pairs, none on the f32 route
-    assert run["mem"]["stage3_calls"] == {"kernel_A": n_ds, "f32": 0}
+    assert run["mem"]["stage3_calls"] == {"kernel_A": n_ds,
+                                          "kernel_A_f32": 0, "f32": 0}
     assert run["seen"]["argv"] == ["e2e", "-w", run["root"], "--out-json",
                                    run["argv"][3], "--n-pairs", "200",
                                    "--pj-iters", "40"]

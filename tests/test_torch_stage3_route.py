@@ -99,7 +99,8 @@ def test_compdist_rows_equal_jax_kernel_a_in_bf16(tmp_path):
                    progress=False, device="cpu")
     assert N_PAIRS % PAIR_BLOCK % TP and PAIR_BLOCK % TP
     generate_synthetic_dataset(ws, "tiny", seed=3, n_pairs=N_PAIRS)
-    assert ws._stage3_bank()[1], "the bank must take kernel A's route"
+    assert ws._stage3_bank()[1] == "kernel_A", \
+        "the bank must take kernel A's bf16 route"
     with ArtifactStore(ws.compdist("tiny"), "r") as st:
         got = st.read("Distance")
     with ArtifactStore(ws.path("dataset", "tiny.h5"), "r") as st:
@@ -120,6 +121,42 @@ def test_compdist_rows_equal_jax_kernel_a_in_bf16(tmp_path):
         got, stages.ring_distances(f32, *pt).numpy())
 
 
+@pytest.mark.parametrize("precision,shape,cuda,route", [
+    ("highest", (40960, 4096), True, "kernel_A_f32"),
+    ("highest", (1024, 4096), True, "kernel_A_f32"),
+    ("highest", (40960, 4096), False, "f32"),  # no f32 kernel off the card
+    ("highest", (1000, 4096), True, "f32"),    # filters off the 128 tile
+    ("highest", (1024, 4000), True, "f32"),    # pixels off the 64 stage
+    ("default", (40960, 4096), True, "kernel_A"),
+    ("default", (40960, 4096), False, "kernel_A"),
+    ("default", (1000, 4096), True, "f32"),
+    ("default", (1024, 4000), True, "f32"),
+])
+def test_stage3_route_choice(precision, shape, cuda, route):
+    assert stages.stage3_route(precision, shape, cuda) == route
+
+
+def test_f32_route_on_the_cpu_is_the_plain_product(tmp_path):
+    """At "highest" stage 3 on the CPU takes ops/pair_distance's f32
+    product (``stages.ring_distances``, the JAX parity route), its bank an
+    f32 matrix; kernel A's f32 mode off the card gives the same rows bit
+    for bit."""
+    ws = Workspace(str(tmp_path), pool_cfg=BANK, progress=False,
+                   device="cpu")
+    filters, route = ws._stage3_bank()
+    assert route == "f32"
+    assert filters.dtype == torch.float32 and filters.shape == (1024, 4096)
+    rng = np.random.default_rng(0)
+    patches = rng.integers(0, 256, (2 * 21, 64, 64), dtype=np.uint8)
+    pt = batch_patch_transform(torch.from_numpy(patches))
+    want = stages.ring_distances(filters, pt[:21], pt[21:])
+    assert torch.equal(stages.ring_distances_fused(filters, pt[:21],
+                                                   pt[21:], bf16=False), want)
+    for r in (route, "kernel_A_f32"):
+        assert torch.equal(stages.stage3_distances(filters, r, pt[:21],
+                                                   pt[21:]), want), r
+
+
 @pytest.fixture(scope="module")
 def chains(tmp_path_factory):
     """The toy e2e chain at BANK on the f32 route and, through
@@ -137,8 +174,10 @@ def chains(tmp_path_factory):
 
 def test_chains_take_their_routes(chains):
     n_ds = len(chains["default"]["res"]["datasets"])
-    assert chains["default"]["calls"] == {"kernel_A": n_ds, "f32": 0}
-    assert chains["highest"]["calls"] == {"kernel_A": 0, "f32": n_ds}
+    assert chains["default"]["calls"] == {"kernel_A": n_ds,
+                                          "kernel_A_f32": 0, "f32": 0}
+    assert chains["highest"]["calls"] == {"kernel_A": 0,
+                                          "kernel_A_f32": 0, "f32": n_ds}
     assert stages.Workspace is Workspace
 
 

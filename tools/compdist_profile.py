@@ -7,18 +7,19 @@ the ring-distance product on the card against the host's work.
 The workspace is one the ``e2e`` command wrote (its dataset and filter
 bank); stage 3 runs as ``run_reference_scale`` runs it
 (``Workspace(pair_block=8192)``), at ``DescriptorConfig``'s default
-precision "highest" (the f32 route) or, with ``--matmul-precision
-default``, on the bf16 route (kernel A), the route
-``Workspace._stage3_bank`` picks. Three parts, each over the first
-``--blocks`` blocks of the dataset, writing into a scratch artifact of
-the stage's full shape that is removed at the end:
+precision "highest" (kernel A's f32 mode on the card where the bank
+fits its tiles) or, with ``--matmul-precision default``, on the bf16
+route (kernel A's bf16 mode), the route ``Workspace._stage3_bank``
+picks. Three parts, each over the first ``--blocks`` blocks of the
+dataset, writing into a scratch artifact of the stage's full shape that
+is removed at the end:
 
 1. ``split``: the body of ``Workspace._dist_rows`` a line at a time, the
    card synchronised after each part: the host's patch gather
    (``patches[indices[s:e, c]]``), the upload, the patch transform, the
-   ring distances (the f32 product with its truncation and ring sums, or
-   kernel A with its operand layout), the copy to the host, the finite
-   check, and ``write_rows`` (the memory map's copy and flush); host
+   ring distances (kernel A with its operand split or layout, or the f32
+   product with its truncation and ring sums), the copy to the host, the
+   finite check, and ``write_rows`` (the memory map's copy and flush); host
    seconds from ``time.perf_counter``;
 2. ``program``: ``Workspace._dist_rows`` itself over the same blocks, timed
    on the host clock (the loop already synchronises on every block's copy
@@ -34,7 +35,8 @@ load (``ArtifactStore.read``, as compdist does) is timed once; each part's
 rows are compared with the stage's own output
 (``rows_equal_stage_output``: a stage-3 artifact written on the other
 route does not compare equal). The JSON names the card from nvidia-smi,
-the precision and the route.
+the precision and the route, and each part kernel A's launches in each
+mode (``kernel_a_launches``: bf16, ``kernel_a_f32_launches``: f32).
 """
 
 import argparse
@@ -54,13 +56,12 @@ from opencv_dlco_tpu_torch.data.store import (ArtifactStore,  # noqa: E402
                                               remove_artifact)
 from opencv_dlco_tpu_torch.pipeline.e2e import (  # noqa: E402
     DEFAULT_DATASETS, REFERENCE_N_PAIRS, generate_synthetic_dataset)
-from opencv_dlco_tpu_torch.ops.pair_distance import (  # noqa: E402
-    ring_distances)
 from opencv_dlco_tpu_torch.ops.pair_distance_fused import (  # noqa: E402
     ring_distances_fused)
 from opencv_dlco_tpu_torch.ops.patch_transform import (  # noqa: E402
     batch_patch_transform)
-from opencv_dlco_tpu_torch.pipeline.stages import Workspace  # noqa: E402
+from opencv_dlco_tpu_torch.pipeline.stages import (  # noqa: E402
+    Workspace, stage3_distances, stage3_route)
 from opencv_dlco_tpu_torch.utils.configs import (  # noqa: E402
     DescriptorConfig)
 
@@ -89,13 +90,8 @@ def scratch_store(ws, shape, tag: str):
 def split_blocks(ws, st, indices, patches, n_blocks: int) -> dict:
     """Part 1: _dist_rows' body timed a part at a time."""
     dev = ws._dev
-    filters, fused = ws._stage3_bank()
+    filters, route = ws._stage3_bank()
     secs = {p: [] for p in PARTS}
-
-    def dists(pt1, pt2):
-        if fused:
-            return ring_distances_fused(filters, pt1, pt2, bf16=True)
-        return ring_distances(filters, pt1, pt2)
 
     def part(name, fn):
         t0 = time.perf_counter()
@@ -114,7 +110,8 @@ def split_blocks(ws, st, indices, patches, n_blocks: int) -> dict:
         pt1, pt2 = part("transform", lambda: (
             batch_patch_transform(p1, ws.desc_cfg),
             batch_patch_transform(p2, ws.desc_cfg)))
-        d = part("ring_distances", lambda: dists(pt1, pt2))
+        d = part("ring_distances",
+                 lambda: stage3_distances(filters, route, pt1, pt2))
         del p1, p2, pt1, pt2
         d = part("to_host", lambda: d.cpu().numpy())
         ok = part("finite_check", lambda: bool(np.all(np.isfinite(d))))
@@ -162,12 +159,13 @@ def prepare(ws, ds: str) -> dict:
     out["generate_seconds"] = time.perf_counter() - t0
     if ws._dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ws._dev)
-    ring_distances_fused.launches = 0
+    ring_distances_fused.launches = ring_distances_fused.launches_f32 = 0
     t0 = time.perf_counter()
     ws.compdist(ds)
     sync(ws._dev)
     out["compdist_seconds"] = time.perf_counter() - t0
     out["compdist_kernel_a_launches"] = ring_distances_fused.launches
+    out["compdist_kernel_a_f32_launches"] = ring_distances_fused.launches_f32
     out["compdist_device_peak_bytes"] = (
         torch.cuda.max_memory_allocated(ws._dev)
         if ws._dev.type == "cuda" else None)
@@ -222,7 +220,9 @@ def main(argv=None):
            "dataset": args.ds, "n_pairs": int(n_pairs),
            "pair_block": ws.pair_block, "blocks": args.blocks,
            "precision": ws.desc_cfg.matmul_precision,
-           "route": "kernel_A" if ws._stage3_bank()[1] else "f32",
+           "route": stage3_route(ws.desc_cfg.matmul_precision,
+                                 ws.load_filters().shape,
+                                 ws._dev.type == "cuda"),
            "load_seconds": load, "prepare": prepared}
     paths = []
     try:
@@ -230,7 +230,8 @@ def main(argv=None):
                         ("program", None), ("profiled", profiled_blocks)):
             st = scratch_store(ws, shape, tag)
             paths.append(st.path)
-            ring_distances_fused.launches = 0
+            ring_distances_fused.launches = \
+                ring_distances_fused.launches_f32 = 0
             with st:
                 if fn is None:
                     t0 = time.perf_counter()
@@ -241,6 +242,8 @@ def main(argv=None):
                 else:
                     out[tag] = fn(ws, st, indices, patches, args.blocks)
             out[tag]["kernel_a_launches"] = ring_distances_fused.launches
+            out[tag]["kernel_a_f32_launches"] = \
+                ring_distances_fused.launches_f32
             with ArtifactStore(st.path, "r") as got, \
                     ArtifactStore(ws.dist_path(args.ds), "r") as want:
                 n = args.blocks * ws.pair_block

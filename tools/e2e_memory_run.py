@@ -17,8 +17,11 @@ and stage 7's products on bf16 operands): while the run lasts,
 ``stages.Workspace`` is a subclass whose ``desc_cfg`` defaults to
 ``DescriptorConfig(matmul_precision="default")`` (``run_reference_scale``
 imports it at call time). Both JSONs then name the precision and the
-route stage 3 took (``stage3_route``, from the calls ``_dist_rows`` made
-to ``ring_distances_fused`` and to the f32 ``ring_distances``).
+route stage 3 took (``stage3_route``, from the routes of the calls
+``_dist_rows`` made to ``stages.stage3_distances``: kernel A's bf16 mode,
+"kernel_A", its f32 mode, "kernel_A_f32", or the f32 ``ring_distances``,
+"f32"; on the card kernel A's launch counts, ``A`` and ``A_f32``, say the
+same).
 
 Nothing else in the package is switched: the stage functions
 ``run_full`` calls are wrapped here for the duration of the run, and the
@@ -226,36 +229,30 @@ def stage3_precision(precision: str):
         stages.Workspace = base
 
 
-ROUTES = {"ring_distances_fused": "kernel_A", "ring_distances": "f32"}
-
-
 @contextlib.contextmanager
 def stage3_route():
-    """Counts the calls ``Workspace._dist_rows`` makes to each ring-distance
-    route while the block runs; yields the counts, keyed by ``ROUTES``'
-    names."""
-    calls = {name: 0 for name in ROUTES.values()}
-    saved = {attr: getattr(stages, attr) for attr in ROUTES}
+    """Counts the calls ``Workspace._dist_rows`` makes to
+    ``stages.stage3_distances`` on each route while the block runs; yields
+    the counts: "kernel_A" (kernel A's bf16 mode), "kernel_A_f32" (its f32
+    mode) and "f32"."""
+    calls = {"kernel_A": 0, "kernel_A_f32": 0, "f32": 0}
+    inner = stages.stage3_distances
 
-    def counted(attr, inner):
-        @functools.wraps(inner)
-        def call(*a, **kw):
-            calls[ROUTES[attr]] += 1
-            return inner(*a, **kw)
-        return call
+    @functools.wraps(inner)
+    def counted(filters, route, *a, **kw):
+        calls[route] += 1
+        return inner(filters, route, *a, **kw)
 
-    for attr, inner in saved.items():
-        setattr(stages, attr, counted(attr, inner))
+    stages.stage3_distances = counted
     try:
         yield calls
     finally:
-        for attr, inner in saved.items():
-            setattr(stages, attr, inner)
+        stages.stage3_distances = inner
 
 
 def route_name(calls: dict) -> str:
-    """The one route stage 3 took: "kernel_A" or "f32"; raises if both or
-    neither ran."""
+    """The one route stage 3 took: "kernel_A", "kernel_A_f32" or "f32";
+    raises if more than one or none ran."""
     taken = [name for name, n in calls.items() if n]
     if len(taken) != 1:
         raise RuntimeError(f"stage 3 took {taken or 'no'} route: {calls}")
@@ -320,6 +317,7 @@ def main(argv=None):
     restore = install(sampler, records)
     for w in WRAPPERS.values():
         w.launches = 0
+    ring_distances_fused.launches_f32 = 0
     t0 = time.perf_counter()
     try:
         with stage3_precision(args.matmul_precision), \
@@ -332,6 +330,7 @@ def main(argv=None):
     facts["stage3_calls"] = calls
     facts["stage3_route"] = route_name(calls)
     facts["launches"] = {k: w.launches for k, w in WRAPPERS.items()}
+    facts["launches"]["A_f32"] = ring_distances_fused.launches_f32
     with open(args.out_json) as fh:
         summary = json.load(fh)
     summary.update(matmul_precision=args.matmul_precision,
